@@ -4,20 +4,26 @@
 
 Phases (each fails loudly; nothing is caught and turned into success):
   0. probe: the card (nvidia-smi name and power limit), torch, CUDA, nvcc;
-  1. build the CUDA kernel from perspectivefields_tpu_torch/csrc;
-  2. kernel vs its plain PyTorch version at the main path's shapes, f32 and
-     bf16, with and without the residual, plus a ragged case; CUDA-event
-     times of both;
+  1. build the three CUDA kernels from perspectivefields_tpu_torch/csrc, one
+     nvcc each, all started together; print ptxas's register/spill lines;
+  2. each kernel vs its plain PyTorch version at the main path's shapes (B=8),
+     f32 and bf16, plus a ragged case; device times of the kernel, its plain
+     version and (for fused_attention) one PyTorch library call, each from
+     CUDA events around 30 back-to-back calls; each kernel's bound;
   3. the slice: PerspectiveFields("Paramnet-360Cities-edina-centered") in
      bf16 with seeded random weights answers 3 batches of 8 640x640 images
-     and one 480x640 image through inference_batch / inference; the kernel
-     must launch 25 times per forward; then f32 kernel path vs f32 plain
-     path from the same weights;
-  4. throughput of inference_batch at B=32, bf16, kernel vs plain path.
+     and one 480x640 image through inference_batch / inference, once on the
+     default path (fused_attention: 25 launches per forward) and once with
+     fuse_ffn + fuse_convnext (25 / 28 / 18 launches of fused_attention /
+     mixffn / convnext_block per forward);
+  4. f32 parity against the plain path from the same weights: the kernel
+     path, and the fused path (all three kernels);
+  5. throughput of inference_batch at B=32, bf16: plain, kernel and fused
+     paths in interleaved windows, with a split of one batch.
 
 The line before the last is a JSON object with the kernels' launch counts,
-errors and times; the last line is {"ok": true, "device": {...}}. Without a
-CUDA device it exits non-zero and prints neither.
+errors, times and bounds; the last line is {"ok": true, "device": {...}}.
+Without a CUDA device it exits non-zero and prints neither.
 """
 
 from __future__ import annotations
@@ -27,17 +33,23 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from perspectivefields_tpu.config import model_zoo
 from perspectivefields_tpu_torch import PerspectiveFields, native
+from perspectivefields_tpu_torch.config import model_zoo
 from perspectivefields_tpu_torch.kernels import build as kbuild
+from perspectivefields_tpu_torch.kernels import convnext_block as cb
 from perspectivefields_tpu_torch.kernels import fused_attention as fa
+from perspectivefields_tpu_torch.kernels import mixffn as mf
+from perspectivefields_tpu_torch.kernels import roofline
 from perspectivefields_tpu_torch.models import PersNet
 from perspectivefields_tpu_torch.models.common import init_random_
-from perspectivefields_tpu_torch.models.mit import SRAttention
+from perspectivefields_tpu_torch.models.convnext import ConvNeXtBlock
+from perspectivefields_tpu_torch.models.mit import MixFFN, SRAttention
 
 VERSION = "Paramnet-360Cities-edina-centered"
 SEED = 0
@@ -45,9 +57,20 @@ SEED = 0
 # blocks of each stage the kernel runs per forward (4 + 18 + 3 = 25)
 STAGES = {2: (1600, 128, 2, 4), 3: (400, 320, 5, 18), 4: (100, 512, 8, 3)}
 LAUNCHES_PER_FORWARD = sum(s[3] for s in STAGES.values())
+# MiT-b3 MixFFN at 320^2: (H = W, C, blocks) of stages 1-4 (3 + 4 + 18 + 3)
+FFN_STAGES = {1: (80, 64, 3), 2: (40, 128, 4), 3: (20, 320, 18), 4: (10, 512, 3)}
+# ParamNet's ConvNeXt-T over the 320^2 field: (H = W, C, blocks) (3 + 3 + 9 + 3)
+CNX_STAGES = {0: (80, 96, 3), 1: (40, 192, 3), 2: (20, 384, 9), 3: (10, 768, 3)}
+FUSED_LAUNCHES = {
+    "fused_attention": LAUNCHES_PER_FORWARD,
+    "mixffn": sum(s[2] for s in FFN_STAGES.values()),
+    "convnext_block": sum(s[2] for s in CNX_STAGES.values()),
+}
+KERNELS = {"fused_attention": fa, "mixffn": mf, "convnext_block": cb}
 F32_TOL = 1e-4  # atol and rtol, f32 kernel vs f32 plain version
 BF16_REL_TOL = 1e-2  # max|d| / max|ref|, bf16 kernel vs f32 plain version
 FIELD_TOL, DEGREE_TOL = 5e-4, 1e-3  # tests/test_reference_parity.py:104-133
+TIMING_CALLS = 30
 
 
 def log(msg: str) -> None:
@@ -80,26 +103,19 @@ def probe() -> str:
 
 def build_phase() -> None:
     t0 = time.perf_counter()
-    lib = kbuild.build("fused_attention")
-    fa.load()
-    log(f"[build] {lib.name} in {time.perf_counter() - t0:.2f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "warning" in line:
-            log(f"[build] ptxas: {line.strip()}")
-
-
-def _attn_inputs(rng, b, n, m, c, device="cuda"):
-    """numpy inputs scaled as in tests/test_fused_attention.py:23-34,
-    weights in nn.Linear's (out, in) layout."""
-    def t(*shape, scale=1.0):
-        return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32, device=device)
-
-    return [t(b, n, c), t(b, m, c), t(c, c, scale=0.05), t(c, scale=0.01),
-            t(2 * c, c, scale=0.05), t(2 * c, scale=0.01), t(c, c, scale=0.05),
-            t(c, scale=0.01)]
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, in parallel
+        libs = dict(zip(KERNELS, pool.map(kbuild.build, KERNELS)))
+    for mod in KERNELS.values():
+        mod.load()
+    log(f"[build] {', '.join(lib.name for lib in libs.values())} in {time.perf_counter() - t0:.2f} s")
+    for name, lib in libs.items():
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "warning" in line:
+                log(f"[build] {name} ptxas: {line.strip()}")
 
 
 def median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Median of per-call times, each call synchronised (for whole forwards)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -114,16 +130,83 @@ def median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def kernel_phase() -> dict:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def device_ms(fn, calls: int = TIMING_CALLS, warmup: int = 3) -> float:
+    """Device time per call: CUDA events around ``calls`` back-to-back
+    calls, divided by ``calls`` (no synchronisation between calls)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def stage_bound(cost) -> tuple[float, str]:
+    """One call's bound (ms) and what bounds it (kernels/roofline.py)."""
+    terms = roofline.bound_terms(*cost)
+    by = max(terms, key=terms.get)
+    return terms[by], by
+
+
+def _check(kernel: str, tag: str, got, want, dtype) -> tuple[float, bool]:
+    err = (got.float() - want).abs()
+    abs_err, ref_max = err.max().item(), want.abs().max().item()
+    if dtype == torch.float32:
+        ok = bool((err <= F32_TOL + F32_TOL * want.abs()).all())
+        bound = f"atol=rtol={F32_TOL}"
+    else:
+        ok = abs_err / ref_max <= BF16_REL_TOL
+        bound = f"rel<={BF16_REL_TOL}"
+    log(f"[kernel] {kernel} {tag} {str(dtype)[6:]}: max|d|={abs_err:.3e} rel={abs_err / ref_max:.3e} "
+        f"({bound}) {'ok' if ok else 'FAIL'}")
+    return abs_err, ok
+
+
+def _randn(rng, *shape, scale=1.0):
+    return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32, device="cuda")
+
+
+def _attn_inputs(rng, b, n, m, c):
+    """numpy inputs scaled as in tests/test_fused_attention.py:23-34,
+    weights in nn.Linear's (out, in) layout."""
+    return [_randn(rng, b, n, c), _randn(rng, b, m, c), _randn(rng, c, c, scale=0.05),
+            _randn(rng, c, scale=0.01), _randn(rng, 2 * c, c, scale=0.05),
+            _randn(rng, 2 * c, scale=0.01), _randn(rng, c, c, scale=0.05),
+            _randn(rng, c, scale=0.01)]
+
+
+def _ffn_inputs(rng, b, h, w, c):
+    """x and MixFFN weights at their init scales: Linear (out, in), the
+    depthwise kernel (4C, 1, 3, 3)."""
+    return [_randn(rng, b, h, w, c), _randn(rng, 4 * c, c, scale=c**-0.5),
+            _randn(rng, 4 * c, scale=0.1), _randn(rng, 4 * c, 1, 3, 3, scale=1 / 3),
+            _randn(rng, 4 * c, scale=0.1), _randn(rng, c, 4 * c, scale=(4 * c) ** -0.5),
+            _randn(rng, c, scale=0.1)]
+
+
+def _cnx_inputs(rng, b, h, w, c):
+    """x and ConvNeXt-block weights: the depthwise kernel (C, 1, 7, 7),
+    LayerNorm affine, Linear (out, in), and a layer scale of order 1 so the
+    MLP branch is not hidden under the residual."""
+    return [_randn(rng, b, h, w, c), _randn(rng, c, 1, 7, 7, scale=1 / 7),
+            _randn(rng, c, scale=0.1), 1.0 + _randn(rng, c, scale=0.1), _randn(rng, c, scale=0.1),
+            _randn(rng, 4 * c, c, scale=c**-0.5), _randn(rng, 4 * c, scale=0.1),
+            _randn(rng, c, 4 * c, scale=(4 * c) ** -0.5), _randn(rng, c, scale=0.1),
+            _randn(rng, c, scale=0.5)]
+
+
+def attention_kernel_phase() -> dict:
     cases = [(8, n, 100, c, h) for n, c, h, _ in STAGES.values()] + [(3, 37, 5, 128, 2)]
-    max_abs = 0.0
-    failures = []
+    max_abs, failures = 0.0, []
     for b, n, m, c, heads in cases:
         rng = np.random.default_rng(b * 1000 + n + m + c)
         args = _attn_inputs(rng, b, n, m, c)
-        res = torch.tensor(rng.normal(size=(b, n, c)), dtype=torch.float32, device="cuda")
+        res = _randn(rng, b, n, c)
         for dtype in (torch.float32, torch.bfloat16):
             for residual in (None, res):
                 a = [t.to(dtype) for t in args]
@@ -135,50 +218,126 @@ def kernel_phase() -> dict:
                     *[t.float() for t in a], heads, 64**-0.5,
                     residual=None if r is None else r.float(),
                 )
-                err = (got.float() - want).abs()
-                abs_err, ref_max = err.max().item(), want.abs().max().item()
-                if dtype == torch.float32:
-                    ok = bool((err <= F32_TOL + F32_TOL * want.abs()).all())
-                    bound = f"atol=rtol={F32_TOL}"
-                else:
-                    ok = abs_err / ref_max <= BF16_REL_TOL
-                    bound = f"rel<={BF16_REL_TOL}"
-                max_abs = max(max_abs, abs_err)
-                tag = f"B={b} N={n} M={m} C={c} heads={heads} {str(dtype)[6:]} residual={r is not None}"
-                log(f"[kernel] {tag}: max|d|={abs_err:.3e} rel={abs_err / ref_max:.3e} ({bound}) "
-                    f"{'ok' if ok else 'FAIL'}")
+                tag = f"B={b} N={n} M={m} C={c} heads={heads} residual={r is not None}"
+                err, ok = _check("fused_attention", tag, got, want, dtype)
+                max_abs = max(max_abs, err)
                 if not ok:
                     failures.append(tag)
     if failures:
-        raise AssertionError(f"kernel disagrees with its plain version: {failures}")
+        raise AssertionError(f"fused_attention disagrees with its plain version: {failures}")
 
-    # bf16 times at B=8 (the slice's batch): kernel alone vs its plain
-    # version, and SRAttention's kernel path vs its plain path (sr conv + LN
-    # included in both)
-    ms = plain_ms = 0.0
+    # bf16 device times at B=8 (the slice's batch): the kernel, its plain
+    # version, F.multi_head_attention_forward (the library call for the same
+    # function; the port never calls it), and SRAttention's kernel path vs
+    # its plain path (sr conv + LN included in both)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
+    costs = []
     for stage, (n, c, heads, blocks) in STAGES.items():
         rng = np.random.default_rng(stage)
         a = [t.to(torch.bfloat16) for t in _attn_inputs(rng, 8, n, 100, c)]
-        t_k = median_ms(lambda: fa.fused_attention(*a, heads, 64**-0.5))
-        t_p = median_ms(lambda: fa.fused_attention_reference(*a, heads, 64**-0.5))
-        hw = int(round(n**0.5))
+        x, kv_in, wq, bq, wkv, bkv, wp, bp = a
+        xt, kvt, bias = x.transpose(0, 1), kv_in.transpose(0, 1), torch.cat([bq, bkv])
+
+        def library():
+            return F.multi_head_attention_forward(
+                xt, kvt, kvt, c, heads, None, bias, None, None, False, 0.0, wp, bp,
+                training=False, need_weights=False, use_separate_proj_weight=True,
+                q_proj_weight=wq, k_proj_weight=wkv[:c], v_proj_weight=wkv[c:],
+            )[0]
+
+        with torch.inference_mode():
+            lib_out = library().transpose(0, 1)
+            ker_out = fa.fused_attention(*a, heads, 64**-0.5)
+            lib_d = (lib_out.float() - ker_out.float()).abs().max().item()
+            t_k = device_ms(lambda: fa.fused_attention(*a, heads, 64**-0.5))
+            t_p = device_ms(lambda: fa.fused_attention_reference(*a, heads, 64**-0.5))
+            t_l = device_ms(library)
+        costs.append((roofline.attention_cost(8, n, 100, c, heads), blocks))
+        t_b, by = stage_bound(costs[-1][0])
         sr = {2: 4, 3: 2, 4: 1}[stage]
-        x = torch.tensor(rng.normal(size=(8, hw, hw, c)), dtype=torch.bfloat16, device="cuda")
+        xm = _randn(rng, 8, int(round(n**0.5)), int(round(n**0.5)), c).to(torch.bfloat16)
         mods = {}
         for use in (True, False):
-            mod = SRAttention(c, heads, sr, use_kernels=use)
-            init_random_(mod, seed=stage)
-            mods[use] = mod.to("cuda", torch.bfloat16).eval()
+            mods[use] = init_random_(SRAttention(c, heads, sr, use_kernels=use), seed=stage).to(
+                "cuda", torch.bfloat16).eval()
         with torch.inference_mode():
-            t_mk = median_ms(lambda: mods[True](x))
-            t_mp = median_ms(lambda: mods[False](x))
-        log(f"[kernel] stage {stage} bf16 B=8 N={n} C={c} heads={heads}: kernel {t_k:.4f} ms, "
-            f"plain version {t_p:.4f} ms; SRAttention kernel path {t_mk:.4f} ms, plain path {t_mp:.4f} ms")
-        ms += blocks * t_k
-        plain_ms += blocks * t_p
-    log(f"[kernel] per forward at B=8 ({LAUNCHES_PER_FORWARD} launches): kernel {ms:.4f} ms, "
-        f"plain version {plain_ms:.4f} ms")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+            t_mk = device_ms(lambda: mods[True](xm))
+            t_mp = device_ms(lambda: mods[False](xm))
+        log(f"[kernel] fused_attention stage {stage} bf16 B=8 N={n} C={c} heads={heads}: kernel "
+            f"{t_k:.4f} ms, plain version {t_p:.4f} ms, F.multi_head_attention_forward {t_l:.4f} ms "
+            f"(max|d| vs kernel {lib_d:.2e}), bound {t_b:.4f} ms ({by}); SRAttention kernel path "
+            f"{t_mk:.4f} ms, plain path {t_mp:.4f} ms")
+        for key, v in zip(tot, (t_k, t_p, t_l)):
+            tot[key] += blocks * v
+    bound, by = roofline.per_forward(costs)
+    return {"max_abs_err": max_abs, **tot, "bound_ms": bound, "bound_by": by}
+
+
+def _fused_kernel_phase(name, mod, fn, ref, make_inputs, stages, cost, module_pair) -> dict:
+    """Check ``fn`` (the wrapper) against ``ref`` (its plain version) at the
+    stage shapes at B=8 and a ragged case, f32 and bf16; then time both, the
+    module's fused and plain paths, and sum per forward with the bound."""
+    cases = [(8, hw, hw, c) for hw, c, _ in stages.values()] + [(3, 13, 7, 64)]
+    max_abs, failures = 0.0, []
+    for b, h, w, c in cases:
+        args = make_inputs(np.random.default_rng(b * 1000 + h + w + c), b, h, w, c)
+        for dtype in (torch.float32, torch.bfloat16):
+            a = [t.to(dtype) for t in args]
+            before = mod.LAUNCHES
+            got = fn(*a)
+            torch.cuda.synchronize()
+            if mod.LAUNCHES != before + 1:
+                raise AssertionError(f"{name}: the wrapper did not launch its kernel")
+            want = ref(*[t.float() for t in a])  # f32 on the same rounded inputs
+            tag = f"B={b} H={h} W={w} C={c}"
+            err, ok = _check(name, tag, got, want, dtype)
+            max_abs = max(max_abs, err)
+            if not ok:
+                failures.append(f"{tag} {dtype}")
+    if failures:
+        raise AssertionError(f"{name} disagrees with its plain version: {failures}")
+
+    tot = dict(ms=0.0, plain_ms=0.0)
+    costs = []
+    for stage, (hw, c, blocks) in stages.items():
+        a = [t.to(torch.bfloat16) for t in make_inputs(np.random.default_rng(stage), 8, hw, hw, c)]
+        with torch.inference_mode():
+            t_k = device_ms(lambda: fn(*a))
+            t_p = device_ms(lambda: ref(*a))
+        costs.append((cost(8, hw, hw, c), blocks))
+        t_b, by = stage_bound(costs[-1][0])
+        mods = {f: module_pair(c, f).to("cuda", torch.bfloat16).eval() for f in (True, False)}
+        for m in mods.values():
+            init_random_(m, seed=stage)
+        mods[True].load_state_dict(mods[False].state_dict())
+        with torch.inference_mode():
+            t_mk = device_ms(lambda: mods[True](a[0]))
+            t_mp = device_ms(lambda: mods[False](a[0]))
+        log(f"[kernel] {name} stage {stage} bf16 B=8 {hw}x{hw} C={c}: kernel {t_k:.4f} ms, "
+            f"plain version {t_p:.4f} ms, bound {t_b:.4f} ms ({by}); module fused path "
+            f"{t_mk:.4f} ms, unfused path {t_mp:.4f} ms")
+        for key, v in zip(tot, (t_k, t_p)):
+            tot[key] += blocks * v
+    bound, by = roofline.per_forward(costs)
+    return {"max_abs_err": max_abs, **tot, "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def kernel_phase() -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {
+        "fused_attention": attention_kernel_phase(),
+        "mixffn": _fused_kernel_phase(
+            "mixffn", mf, mf.mixffn, mf.mixffn_reference, _ffn_inputs, FFN_STAGES,
+            roofline.mixffn_cost,
+            lambda c, fused: MixFFN(c, 4 * c, fused=fused),
+        ),
+        "convnext_block": _fused_kernel_phase(
+            "convnext_block", cb, cb.convnext_block, cb.convnext_block_reference, _cnx_inputs,
+            CNX_STAGES, roofline.convnext_block_cost,
+            lambda c, fused: ConvNeXtBlock(c, fused=fused),
+        ),
+    }
 
 
 def seeded_state_dict(cfg) -> dict:
@@ -215,48 +374,46 @@ def check_contract(pred: dict, hw) -> None:
         raise AssertionError(f"latitude out of [-90, 90]: {lat.min()}, {lat.max()}")
 
 
-def slice_phase(sd) -> int:
+def _reset_counts() -> None:
+    for mod in KERNELS.values():
+        mod.LAUNCHES = 0
+
+
+def slice_phase(sd, fused: bool) -> dict:
+    """Drive one path: the default bf16 path, or fuse_ffn + fuse_convnext.
+    Every count is set to 0 just before and read just after."""
+    tag = "fused" if fused else "default"
     rng = np.random.default_rng(SEED)
-    model = PerspectiveFields(VERSION, params=sd, compute_dtype="bfloat16", device="cuda")
+    model = PerspectiveFields(VERSION, params=sd, compute_dtype="bfloat16", device="cuda",
+                              fuse_ffn=fused, fuse_convnext=fused)
     if not model.use_kernels:
-        raise AssertionError("the default bf16 CUDA model must use the kernel")
-    log(f"[slice] host preprocess backend: {native.backend()}")
+        raise AssertionError("the default bf16 CUDA model must use the attention kernel")
+    log(f"[slice:{tag}] host preprocess backend: {native.backend()}")
     batches = [rng.integers(0, 256, size=(8, 640, 640, 3), dtype=np.uint8) for _ in range(3)]
     single = rng.integers(0, 256, size=(480, 640, 3), dtype=np.uint8)
     model.inference_batch(list(batches[0]))  # warm-up, before the count
     torch.cuda.synchronize()
 
-    fa.LAUNCHES = 0
+    _reset_counts()
     preds = [p for batch in batches for p in model.inference_batch(list(batch))]
     preds.append(model.inference(single))
     torch.cuda.synchronize()
-    launches = fa.LAUNCHES
+    launches = {name: mod.LAUNCHES for name, mod in KERNELS.items()}
     forwards = len(batches) + 1
-    log(f"[slice] {len(preds)} images in {forwards} forwards: fused_attention launches {launches}")
-    if launches != LAUNCHES_PER_FORWARD * forwards:
-        raise AssertionError(f"want {LAUNCHES_PER_FORWARD} launches per forward, got {launches}/{forwards}")
+    want = {name: (n if fused or name == "fused_attention" else 0) * forwards
+            for name, n in FUSED_LAUNCHES.items()}
+    log(f"[slice:{tag}] {len(preds)} images in {forwards} forwards: launches {launches}")
+    if launches != want:
+        raise AssertionError(f"[slice:{tag}] want launches {want}, got {launches}")
     for p in preds[:-1]:
         check_contract(p, (640, 640))
     check_contract(preds[-1], (480, 640))
-    log(f"[slice] output contract ok; image 0: roll {float(preds[0]['pred_roll']):.4f} "
+    log(f"[slice:{tag}] output contract ok; image 0: roll {float(preds[0]['pred_roll']):.4f} "
         f"pitch {float(preds[0]['pred_pitch']):.4f} vfov {float(preds[0]['pred_vfov']):.4f}")
     return launches
 
 
-def f32_parity_phase(sd) -> None:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    imgs = list(np.random.default_rng(SEED + 1).integers(0, 256, size=(4, 640, 640, 3), dtype=np.uint8))
-    kern = PerspectiveFields(VERSION, params=sd, device="cuda", use_kernels=True)
-    plain = PerspectiveFields(VERSION, params=sd, device="cuda", use_kernels=False)
-    before = fa.LAUNCHES
-    got = kern.inference_batch(imgs)
-    if fa.LAUNCHES - before != LAUNCHES_PER_FORWARD:
-        raise AssertionError(f"f32 kernel model launched {fa.LAUNCHES - before} times")
-    before = fa.LAUNCHES
-    want = plain.inference_batch(imgs)
-    if fa.LAUNCHES != before:
-        raise AssertionError("the plain model launched the kernel")
+def _compare(tag: str, got: list, want: list) -> None:
     worst = {}
     for g, w in zip(got, want):
         for key, wv in w.items():
@@ -266,30 +423,66 @@ def f32_parity_phase(sd) -> None:
             d = np.abs(g[key] - wv)
             worst[key] = max(worst.get(key, 0.0), float(d.max()))
             if (d > tol + 1e-4 * np.abs(wv)).any():
-                raise AssertionError(f"f32 kernel path vs plain path, {key}: max|d| {d.max()} > {tol}")
-    log("[f32] kernel path vs plain path, max|d|: "
+                raise AssertionError(f"f32 {tag} path vs plain path, {key}: max|d| {d.max()} > {tol}")
+    log(f"[f32] {tag} path vs plain path, max|d|: "
         + ", ".join(f"{k} {v:.2e}" for k, v in sorted(worst.items())))
-    # the backbone's stage outputs, where the two attention paths meet first
+
+
+def f32_parity_phase(sd) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    imgs = list(np.random.default_rng(SEED + 1).integers(0, 256, size=(4, 640, 640, 3), dtype=np.uint8))
+    plain = PerspectiveFields(VERSION, params=sd, device="cuda", use_kernels=False)
+    _reset_counts()
+    want = plain.inference_batch(imgs)
+    if any(mod.LAUNCHES for mod in KERNELS.values()):
+        raise AssertionError("the plain model launched a kernel")
+    paths = {
+        "kernel": PerspectiveFields(VERSION, params=sd, device="cuda", use_kernels=True),
+        "fused": PerspectiveFields(VERSION, params=sd, device="cuda", use_kernels=True,
+                                   fuse_ffn=True, fuse_convnext=True),
+    }
     x = torch.from_numpy(
-        native.preprocess_batch(np.stack(imgs), 320, 320, kern._pixel_mean, kern._pixel_std)
+        native.preprocess_batch(np.stack(imgs), 320, 320, plain._pixel_mean, plain._pixel_std)
     ).cuda()
-    with torch.inference_mode():
-        feats = zip(kern.model.backbone(x), plain.model.backbone(x))
-        log("[f32] backbone stage outputs, kernel vs plain path, max|d|: "
-            + ", ".join(f"{(a - b).abs().max().item():.2e}" for a, b in feats))
+    for tag, model in paths.items():
+        _reset_counts()
+        got = model.inference_batch(imgs)
+        counts = {name: mod.LAUNCHES for name, mod in KERNELS.items()}
+        expect = {name: n if tag == "fused" or name == "fused_attention" else 0
+                  for name, n in FUSED_LAUNCHES.items()}
+        if counts != expect:
+            raise AssertionError(f"f32 {tag} model launched {counts}, want {expect}")
+        with torch.inference_mode():
+            # the backbone's stage outputs, where the MiT paths meet first
+            feats = zip(model.model.backbone(x), plain.model.backbone(x))
+            log(f"[f32] {tag}: backbone stage outputs vs plain path, max|d|: "
+                + ", ".join(f"{(a - b).abs().max().item():.2e}" for a, b in feats))
+            # ParamNet's five raw outputs (the ConvNeXt head), each model on
+            # its own fields
+            raw = []
+            for m in (model, plain):
+                out = m.model(x)
+                field = torch.cat([out["pred_gravity"], out["pred_latitude"]], dim=-1)
+                raw.append(m.model.param_net.backbone(field))
+            log(f"[f32] {tag}: ParamNet raw outputs vs plain path, max|d| per output: "
+                + ", ".join(f"{v:.2e}" for v in (raw[0] - raw[1]).abs().amax(dim=0).tolist()))
+        _compare(tag, got, want)
 
 
 def throughput_phase(sd, card: str) -> None:
     rng = np.random.default_rng(SEED + 2)
     batch = list(rng.integers(0, 256, size=(32, 640, 640, 3), dtype=np.uint8))
     models = {
-        "kernel": PerspectiveFields(VERSION, params=sd, compute_dtype="bfloat16", device="cuda"),
         "plain": PerspectiveFields(VERSION, params=sd, compute_dtype="bfloat16", device="cuda",
                                    use_kernels=False),
+        "kernel": PerspectiveFields(VERSION, params=sd, compute_dtype="bfloat16", device="cuda"),
+        "fused": PerspectiveFields(VERSION, params=sd, compute_dtype="bfloat16", device="cuda",
+                                   fuse_ffn=True, fuse_convnext=True),
     }
     reps = 5
     rates = {k: [] for k in models}
-    for name in ("plain", "kernel", "kernel", "plain"):
+    for name in ("plain", "kernel", "fused", "fused", "kernel", "plain"):
         m = models[name]
         m.inference_batch(batch)
         torch.cuda.synchronize()
@@ -298,7 +491,7 @@ def throughput_phase(sd, card: str) -> None:
             m.inference_batch(batch)
         torch.cuda.synchronize()
         rates[name].append(32 * reps / (time.perf_counter() - t0))
-    # split of one batch: host preprocess, device forward, postprocess + copy
+    # split of one batch: host preprocess, device forward, postprocess + copies
     mean, std = models["kernel"]._pixel_mean, models["kernel"]._pixel_std
     stack = np.stack(batch)
     t0 = time.perf_counter()
@@ -307,7 +500,7 @@ def throughput_phase(sd, card: str) -> None:
     x = torch.from_numpy(net_in).to("cuda", torch.bfloat16)
     with torch.inference_mode():
         fwd = {k: median_ms(lambda: m.model(x), reps=5, warmup=1) for k, m in models.items()}
-    for name in ("kernel", "plain"):
+    for name in models:
         total_s = 32 / statistics.mean(rates[name])
         log(f"[throughput] {name}: {', '.join(f'{r:.2f}' for r in rates[name])} img/s "
             f"(B=32 640x640 bf16, {card}); per batch {total_s * 1e3:.1f} ms = host preprocess "
@@ -320,18 +513,22 @@ def main() -> int:
     build_phase()
     kstats = kernel_phase()
     sd = seeded_state_dict(model_zoo[VERSION]["config"])
-    launches = slice_phase(sd)
+    launches = slice_phase(sd, fused=False)
+    fused_launches = slice_phase(sd, fused=True)
     f32_parity_phase(sd)
     throughput_phase(sd, card)
     log(card_line())
-    print(json.dumps({"kernels": [{
-        "name": "fused_attention",
-        "route": "cuda",
-        "source": "perspectivefields_tpu_torch/csrc/fused_attention.cu",
-        "replaces": "perspectivefields_tpu/kernels/fused_attention.py:286",
-        "launches": launches,
-        **kstats,
-    }]}))
+    kernels = []
+    for name, stats in kstats.items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"perspectivefields_tpu_torch/csrc/{name}.cu",
+            "replaces": roofline.flagship()[name][0],
+            "launches": launches[name] if name == "fused_attention" else fused_launches[name],
+            **stats,
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

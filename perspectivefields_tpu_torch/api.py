@@ -18,7 +18,7 @@ from collections.abc import Mapping, Sequence
 import numpy as np
 import torch
 
-from perspectivefields_tpu.config import ModelConfig, model_zoo
+from .config import ModelConfig, model_zoo
 
 from . import native
 from .checkpoint import load_into, load_released, state_dict_from_jax
@@ -59,6 +59,10 @@ class PerspectiveFields:
         device: torch device; None means "cuda" and raises without one.
         use_kernels: route eligible attention blocks to the CUDA kernel.
             None means "on a CUDA device, in bfloat16".
+        fuse_ffn / fuse_convnext: run every MixFFN / every ParamNet
+            ConvNeXt block as one fused kernel (the CUDA kernels on a CUDA
+            device, their plain versions on the CPU); the same state dict.
+            Off by default, as in the JAX package.
     """
 
     def __init__(
@@ -69,6 +73,8 @@ class PerspectiveFields:
         compute_dtype: str = "float32",
         device=None,
         use_kernels: bool | None = None,
+        fuse_ffn: bool = False,
+        fuse_convnext: bool = False,
     ):
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {list(_DTYPES)}")
@@ -85,8 +91,11 @@ class PerspectiveFields:
         self.param_on = config.param_on
         self.input_format = config.input_format
         self.use_kernels = use_kernels
+        self.fuse_ffn, self.fuse_convnext = fuse_ffn, fuse_convnext
 
-        model = PersNet(config, use_kernels=use_kernels)
+        model = PersNet(
+            config, use_kernels=use_kernels, fuse_ffn=fuse_ffn, fuse_convnext=fuse_convnext
+        )
         self._load_params(model, params)
         self.model = model.to(device=self.device, dtype=self.dtype).eval()
         self._pixel_mean = np.asarray(config.pixel_mean, np.float32)

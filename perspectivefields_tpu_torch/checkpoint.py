@@ -2,22 +2,229 @@
 
 The port's module names are the reference's torch state-dict names, which
 is what ``flax_to_torch_names`` emits and what the released checkpoints
-carry, so both load without a name map of their own.
+carry, so both load without a name map of their own. The two name maps
+below are the port's copies of the ones in
+perspectivefields_tpu/checkpoint/torch_convert.py (``map_torch_name`` and
+its ``_map_*`` helpers; ``flax_to_torch_names`` and its helpers), since the
+port imports nothing of the JAX package; tests/test_torch_api.py holds them
+equal.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import warnings
 
 import numpy as np
 import torch
 from torch import nn
 
-from perspectivefields_tpu.checkpoint.torch_convert import (
-    flax_to_torch_names,
-    map_torch_name,
-)
+
+# ---------------------------------------------------------------------------
+# torch state-dict name -> JAX param path (released checkpoints)
+# ---------------------------------------------------------------------------
+
+
+def _map_backbone(parts, leaf):
+    """backbone.<...> (MiT) -> flax path + tensor kind."""
+    head = parts[0]
+    if head.startswith("patch_embed"):
+        sub = parts[1]  # proj | norm
+        kind = "conv" if sub == "proj" else "ln"
+        return ("backbone", head, sub), kind
+    if head.startswith("block"):
+        stage = head[len("block") :]
+        idx = parts[1]
+        rest = parts[2:]
+        base = ("backbone", f"block{stage}_{idx}")
+        if rest[0] in ("norm1", "norm2"):
+            return base + (rest[0],), "ln"
+        if rest[0] == "attn":
+            sub = rest[1]
+            if sub in ("q", "kv", "proj"):
+                return base + ("attn", sub), "linear"
+            if sub == "sr":
+                return base + ("attn", "sr"), "conv"
+            if sub == "norm":
+                return base + ("attn", "norm"), "ln"
+        if rest[0] == "mlp":
+            sub = rest[1]
+            if sub in ("fc1", "fc2"):
+                return base + ("mlp", sub), "linear"
+            if sub == "dwconv":  # mlp.dwconv.dwconv.weight
+                return base + ("mlp", "dwconv"), "conv"
+        raise KeyError(f"unmapped backbone block param: {parts}")
+    if re.fullmatch(r"norm[1-4]", head):
+        return ("backbone", head), "ln"
+    raise KeyError(f"unmapped backbone param: {parts}")
+
+
+def _map_convnext(parts):
+    """ConvNeXt trunk names (inside param_net.backbone)."""
+    head = parts[0]
+    if head == "downsample_layers":
+        stage, sub = int(parts[1]), int(parts[2])
+        if stage == 0:
+            name = "stem_conv" if sub == 0 else "stem_norm"
+            kind = "conv" if sub == 0 else "ln"
+        else:
+            name = f"downsample{stage}_norm" if sub == 0 else f"downsample{stage}_conv"
+            kind = "ln" if sub == 0 else "conv"
+        return (name,), kind
+    if head == "stages":
+        i, j, sub = int(parts[1]), int(parts[2]), parts[3]
+        base = (f"stage{i}_{j}",)
+        if sub == "dwconv":
+            return base + ("dwconv",), "conv"
+        if sub == "norm":
+            return base + ("norm",), "ln"
+        if sub in ("pwconv1", "pwconv2"):
+            return base + (sub,), "linear"
+        if sub == "gamma":
+            return base, "raw"  # leaf name is 'gamma' itself
+        raise KeyError(f"unmapped convnext stage param: {parts}")
+    if head == "norm":
+        return ("norm",), "ln"
+    if head == "head":
+        return ("head",), "linear"
+    raise KeyError(f"unmapped convnext param: {parts}")
+
+
+def _map_head(parts, head_name):
+    """persformer_heads.{gravity,latitude}_head.<...>"""
+    sub = parts[0]
+    base = (head_name,)
+    if re.fullmatch(r"linear_c[1-4]", sub):
+        # torch MLP wrapper: linear_cX.proj.weight -> Dense linear_cX
+        return base + (sub,), "linear"
+    if re.fullmatch(r"linear_c[1-4]_proc", sub):
+        return base + (sub,), "conv"
+    if re.fullmatch(r"fusion[1-4]", sub):
+        # fusionX.resConfUnitY.convZ
+        return base + (sub, parts[1], parts[2]), "conv"
+    if sub in ("conv_fuse_conv0", "conv_fuse_conv1"):
+        # torch ConvModule wrapper: conv_fuse_convX.conv.weight
+        return base + (sub,), "conv"
+    if sub.startswith("linear_pred"):
+        return base + ("linear_pred",), "conv"
+    raise KeyError(f"unmapped head param: {parts}")
+
+
+def map_torch_name(name: str):
+    """Map one torch state-dict key -> (flax path tuple, tensor kind, leaf).
+
+    Returns None for keys to skip (num_batches_tracked etc.).
+    """
+    if name.endswith("num_batches_tracked"):
+        return None
+    parts = name.split(".")
+    root = parts[0]
+    leaf = parts[-1]
+    if root == "backbone":
+        path, kind = _map_backbone(parts[1:-1], leaf)
+        return path, kind, leaf
+    if root == "ll_enc":
+        sub = parts[1]
+        if sub == "conv1":
+            return ("ll_enc", "conv1"), "conv", leaf
+        if sub == "bn1":
+            return ("ll_enc", "bn1"), "bn", leaf
+        raise KeyError(f"unmapped ll_enc param: {name}")
+    if root == "persformer_heads":
+        head_name = parts[1]  # gravity_head | latitude_head
+        path, kind = _map_head(parts[2:-1], head_name)
+        return path, kind, leaf
+    if root == "param_net":
+        assert parts[1] == "backbone"
+        if leaf == "gamma":
+            path, kind = _map_convnext(parts[2:])
+            return ("param_net", "backbone") + path + ("gamma",), "raw", "gamma"
+        path, kind = _map_convnext(parts[2:-1])
+        return ("param_net", "backbone") + path, kind, leaf
+    if root in ("pixel_mean", "pixel_std"):
+        return None  # preprocessing constants live in ModelConfig
+    raise KeyError(f"unmapped torch param: {name}")
+
+
+# ---------------------------------------------------------------------------
+# JAX param tree -> torch state-dict names
+# ---------------------------------------------------------------------------
+
+
+def _flatten(tree: dict, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def flax_to_torch_names(params: dict) -> dict[str, np.ndarray]:
+    """Export flax params as a reference-named torch-layout state dict
+    (conv HWIO -> OIHW, linear (in, out) -> (out, in), norm scale ->
+    weight, BN mean/var -> running_mean/var)."""
+    tree = params.get("params", params)
+    out = {}
+    for path, value in _flatten(tree):
+        out.update(_export_one(path, np.asarray(value)))
+    return out
+
+
+def _export_one(path: tuple[str, ...], value: np.ndarray) -> dict[str, np.ndarray]:
+    leaf = path[-1]
+    # the tensor kind follows from the leaf name and rank
+    if leaf == "kernel" and value.ndim == 4:
+        torch_leaf, v = "weight", np.transpose(value, (3, 2, 0, 1))
+    elif leaf == "kernel" and value.ndim == 2:
+        torch_leaf, v = "weight", np.transpose(value, (1, 0))
+    else:  # scale / mean / var / bias / gamma
+        torch_leaf, v = _LEAF_NAMES.get(leaf, leaf), value
+    return {_torch_name_for(path[:-1], torch_leaf): v}
+
+
+_LEAF_NAMES = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
+
+
+def _torch_name_for(module_path: tuple[str, ...], leaf: str) -> str:
+    parts = list(module_path)
+    out = []
+    i = 0
+    while i < len(parts):
+        p = parts[i]
+        m = re.fullmatch(r"block([1-4])_(\d+)", p)
+        if p == "backbone" and not out:
+            out.append("backbone")
+        elif m:
+            out.append(f"block{m.group(1)}.{m.group(2)}")
+        elif p in ("gravity_head", "latitude_head"):
+            out.append("persformer_heads")
+            out.append(p)
+        elif p == "linear_pred":
+            head = "gravity" if "gravity_head" in out else "latitude"
+            out.append(f"linear_pred_{head}")
+        elif re.fullmatch(r"linear_c[1-4]", p):
+            out.append(p)
+            out.append("proj")  # torch MLP wrapper
+        elif p in ("conv_fuse_conv0", "conv_fuse_conv1"):
+            out.append(p)
+            out.append("conv")  # torch ConvModule wrapper
+        elif p == "dwconv" and i > 0 and parts[i - 1] == "mlp":
+            out.append("dwconv.dwconv")
+        elif p == "stem_conv":
+            out.append("downsample_layers.0.0")
+        elif p == "stem_norm":
+            out.append("downsample_layers.0.1")
+        elif (m := re.fullmatch(r"downsample([1-3])_norm", p)):
+            out.append(f"downsample_layers.{m.group(1)}.0")
+        elif (m := re.fullmatch(r"downsample([1-3])_conv", p)):
+            out.append(f"downsample_layers.{m.group(1)}.1")
+        elif (m := re.fullmatch(r"stage([0-3])_(\d+)", p)):
+            out.append(f"stages.{m.group(1)}.{m.group(2)}")
+        else:
+            out.append(p)
+        i += 1
+    return ".".join(out) + "." + leaf
 
 
 def state_dict_from_jax(params) -> dict[str, torch.Tensor]:

@@ -1,7 +1,7 @@
 """Build the package's CUDA sources into shared libraries, at first use.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
-plain C interface, loaded with ``ctypes``. The output goes to
+plain C interface, loaded with ``ctypes`` (``library``). The output goes to
 ``perspectivefields_tpu_torch/_build/`` under a name keyed by a hash of the
 sources and the flags, so an edit rebuilds and an unchanged tree reuses the
 library. A failed build raises with nvcc's stderr; there is no fallback.
@@ -9,10 +9,12 @@ library. A failed build raises with nvcc's stderr; there is no fallback.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -72,3 +74,33 @@ def build(name: str) -> Path:
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
     return lib
+
+
+_libs: dict[str, ctypes.CDLL] = {}
+_libs_lock = threading.Lock()
+
+
+def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu`` once per process.
+    ``signatures`` maps each C function to its ctypes argtypes; every one
+    returns an int (a cudaError_t, or a count). ``pf_cuda_error_string``,
+    which every source exports, is bound too."""
+    with _libs_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.pf_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.pf_cuda_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return lib
+
+
+def raise_on_error(lib: ctypes.CDLL, err: int, kernel: str) -> None:
+    """Raise if a launch function returned a CUDA error (its
+    cudaGetLastError() right after the launches)."""
+    if err != 0:
+        msg = lib.pf_cuda_error_string(err).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({err})")

@@ -20,11 +20,10 @@ anything the kernel does not take; only CPU tensors go to
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
-from .build import build
+from .build import library, raise_on_error
 
 # Launches of the CUDA kernel since the last reset (a plain counter: a run
 # sets it to 0 and reads it back to show the main path went through here).
@@ -38,8 +37,12 @@ MAX_KEYS = 128
 ATTN_TOKEN_GATE = 2048
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
-_lib_lock = threading.Lock()
+_SIGNATURES = {
+    "pf_fused_attention": (
+        [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_void_p]
+    ),
+}
 
 
 def use_kernel(
@@ -135,19 +138,7 @@ def check_kernel_args(
 
 
 def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build("fused_attention")))
-            lib.pf_fused_attention.argtypes = (
-                [ctypes.c_int] + [ctypes.c_void_p] * 11
-                + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-            )
-            lib.pf_fused_attention.restype = ctypes.c_int
-            lib.pf_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.pf_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+    return library("fused_attention", _SIGNATURES)
 
 
 def load() -> None:
@@ -185,8 +176,6 @@ def fused_attention(
             b, n, m, c, num_heads, float(scale),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    if err != 0:
-        msg = lib.pf_cuda_error_string(err).decode()
-        raise RuntimeError(f"fused_attention kernel launch failed: {msg} ({err})")
+    raise_on_error(lib, err, "fused_attention")
     LAUNCHES += 1
     return out

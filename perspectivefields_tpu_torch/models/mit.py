@@ -7,8 +7,10 @@ attention and Mix-FFN; outputs the stride 4/8/16/32 maps, channels-last.
 
 SRAttention sends blocks that pass ``kernels.fused_attention.use_kernel``
 (at 320^2: the 25 blocks of stages 2-4) to the hand-written CUDA kernel;
-the others run the plain path. Stochastic depth is the identity at
-inference and is not ported.
+the others run the plain path. ``fuse_ffn`` sends every MixFFN to the fused
+MixFFN (``kernels.mixffn``: the CUDA kernel for CUDA tensors, its plain
+version on the CPU), as JAX's ``fuse_ffn`` does. Stochastic depth is the
+identity at inference and is not ported.
 """
 
 from __future__ import annotations
@@ -16,9 +18,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from perspectivefields_tpu.config import BackboneConfig
+from ..config import BackboneConfig
 
 from ..kernels.fused_attention import fused_attention, use_kernel
+from ..kernels.mixffn import mixffn
 from ..ops.activations import gelu
 from .common import conv_nhwc
 
@@ -104,15 +107,23 @@ class DWConv(nn.Module):
 
 
 class MixFFN(nn.Module):
-    """fc1 -> 3x3 depthwise conv on the hidden map -> GELU -> fc2."""
+    """fc1 -> 3x3 depthwise conv on the hidden map -> GELU -> fc2.
+    ``fused`` runs the whole FFN as one fused MixFFN (same state dict)."""
 
-    def __init__(self, dim: int, hidden_dim: int):
+    def __init__(self, dim: int, hidden_dim: int, fused: bool = False):
         super().__init__()
+        self.fused = fused
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.dwconv = DWConv(hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, dim)
 
     def forward(self, x):
+        if self.fused:
+            dw = self.dwconv.dwconv
+            return mixffn(
+                x.contiguous(), self.fc1.weight, self.fc1.bias, dw.weight, dw.bias,
+                self.fc2.weight, self.fc2.bias,
+            )
         return self.fc2(gelu(self.dwconv(self.fc1(x))))
 
 
@@ -122,12 +133,13 @@ class Block(nn.Module):
     def __init__(
         self, dim: int, num_heads: int, sr_ratio: int, mlp_ratio: int = 4,
         qkv_bias: bool = True, ln_eps: float = 1e-6, use_kernels: bool = False,
+        fuse_ffn: bool = False,
     ):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=ln_eps)
         self.attn = SRAttention(dim, num_heads, sr_ratio, qkv_bias, ln_eps, use_kernels)
         self.norm2 = nn.LayerNorm(dim, eps=ln_eps)
-        self.mlp = MixFFN(dim, dim * mlp_ratio)
+        self.mlp = MixFFN(dim, dim * mlp_ratio, fuse_ffn)
 
     def forward(self, x):
         x = x + self.attn(self.norm1(x))
@@ -152,7 +164,10 @@ class MixViT(nn.Module):
     Attribute names follow the reference state dict (``patch_embed1``,
     ``block1.0.attn.kv``, ``norm1``)."""
 
-    def __init__(self, spec: BackboneConfig = BackboneConfig(), use_kernels: bool = False):
+    def __init__(
+        self, spec: BackboneConfig = BackboneConfig(), use_kernels: bool = False,
+        fuse_ffn: bool = False,
+    ):
         super().__init__()
         in_ch = 3
         for s in range(4):
@@ -162,7 +177,7 @@ class MixViT(nn.Module):
             setattr(self, f"block{s + 1}", nn.ModuleList(
                 Block(
                     spec.dims[s], spec.num_heads[s], spec.sr_ratios[s],
-                    spec.mlp_ratio, spec.qkv_bias, spec.ln_eps, use_kernels,
+                    spec.mlp_ratio, spec.qkv_bias, spec.ln_eps, use_kernels, fuse_ffn,
                 )
                 for _ in range(spec.depths[s])
             ))

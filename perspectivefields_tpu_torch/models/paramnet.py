@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from perspectivefields_tpu.config import ParamNetConfig
+from ..config import ParamNetConfig
 
 from .convnext import ConvNeXt
 
@@ -20,7 +20,9 @@ from .convnext import ConvNeXt
 class ParamNetHead(nn.Module):
     """Camera-parameter regressor over predicted fields (NHWC)."""
 
-    def __init__(self, cfg: ParamNetConfig, recover_pp: bool = False):
+    def __init__(
+        self, cfg: ParamNetConfig, recover_pp: bool = False, fused_blocks: bool = False,
+    ):
         super().__init__()
         if cfg.name != "ParamNet":
             raise NotImplementedError(
@@ -29,7 +31,7 @@ class ParamNetHead(nn.Module):
                 "general_vfov_to_focal)"
             )
         self.recover_pp = recover_pp
-        self.backbone = ConvNeXt(num_classes=5)
+        self.backbone = ConvNeXt(num_classes=5, fused_blocks=fused_blocks)
 
     def forward(self, pred_gravity, pred_latitude) -> dict[str, torch.Tensor]:
         """pred_gravity (B, H, W, 2), pred_latitude (B, H, W, 1) -> dict of

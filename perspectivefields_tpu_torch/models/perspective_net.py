@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from perspectivefields_tpu.config import ModelConfig
+from ..config import ModelConfig
 
 from .heads import LowLevelEncoder, SegFormerDecoder
 from .mit import MixViT
@@ -21,12 +21,19 @@ _EPS = 1e-12
 
 class PersNet(nn.Module):
     """Attribute names follow the reference state dict: ``backbone``,
-    ``ll_enc``, ``persformer_heads.{gravity,latitude}_head``, ``param_net``."""
+    ``ll_enc``, ``persformer_heads.{gravity,latitude}_head``, ``param_net``.
 
-    def __init__(self, cfg: ModelConfig, use_kernels: bool = False):
+    ``use_kernels`` gates the attention kernel; ``fuse_ffn`` and
+    ``fuse_convnext`` run every MixFFN and every ParamNet ConvNeXt block
+    fused, as the JAX PersNet's flags of the same names do."""
+
+    def __init__(
+        self, cfg: ModelConfig, use_kernels: bool = False, fuse_ffn: bool = False,
+        fuse_convnext: bool = False,
+    ):
         super().__init__()
         self.cfg = cfg
-        self.backbone = MixViT(cfg.backbone, use_kernels)
+        self.backbone = MixViT(cfg.backbone, use_kernels, fuse_ffn)
         self.ll_enc = LowLevelEncoder()
         heads = {}
         for field, hc in (("gravity", cfg.gravity), ("latitude", cfg.latitude)):
@@ -36,7 +43,9 @@ class PersNet(nn.Module):
                     embed_dim=hc.embed_dim, fusion_dim=hc.fusion_dim,
                 )
         self.persformer_heads = nn.ModuleDict(heads)
-        self.param_net = ParamNetHead(cfg.param, cfg.recover_pp) if cfg.param_on else None
+        self.param_net = (
+            ParamNetHead(cfg.param, cfg.recover_pp, fuse_convnext) if cfg.param_on else None
+        )
 
     def forward(self, images: torch.Tensor) -> dict[str, torch.Tensor]:
         """images: normalized (B, H, W, 3) in the model's dtype. Returns

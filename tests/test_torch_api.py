@@ -3,9 +3,11 @@
 A custom config with MiT-b3 widths (dims 64/128/320/512, heads 1/2/5/8) at
 depth 1/1/1/1, narrow heads and the "ParamNet" branch at a 64^2 network
 input: the same random weights (the JAX init, carried across with
-``flax_to_torch_names``) and the same uint8 images go through both.
+``flax_to_torch_names``) and the same uint8 images go through both, on the
+default path and with fuse_ffn + fuse_convnext.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -17,6 +19,8 @@ import pytest
 import torch
 
 from perspectivefields_tpu import PerspectiveFields as JaxPerspectiveFields
+from perspectivefields_tpu.checkpoint import torch_convert
+from perspectivefields_tpu.config import model_zoo as jax_model_zoo
 from perspectivefields_tpu.config import (
     BackboneConfig,
     GravityHeadConfig,
@@ -24,7 +28,8 @@ from perspectivefields_tpu.config import (
     ModelConfig,
     ParamNetConfig,
 )
-from perspectivefields_tpu_torch import PerspectiveFields, native
+from perspectivefields_tpu_torch import PerspectiveFields, checkpoint, native
+from perspectivefields_tpu_torch.config import model_zoo
 from perspectivefields_tpu_torch.ops.image import pil_resize_uint8
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -63,6 +68,23 @@ def torch_model(jax_model):
     return PerspectiveFields("custom", config=CFG, params=jax_model.params, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def jax_fused_model(jax_model):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return JaxPerspectiveFields(
+            "custom", config=CFG, params=jax_model.params, fuse_ffn=True, fuse_convnext=True
+        )
+
+
+@pytest.fixture(scope="module")
+def torch_fused_model(jax_model):
+    return PerspectiveFields(
+        "custom", config=CFG, params=jax_model.params, device="cpu", fuse_ffn=True,
+        fuse_convnext=True,
+    )
+
+
 def _images():
     rng = np.random.default_rng(0)
     return [
@@ -96,6 +118,47 @@ def test_slice_matches_jax(jax_model, torch_model, call):
         got, want = [torch_model.inference(img)], [jax_model.inference(img)]
     for g, w in zip(got, want):
         _assert_same(g, w)
+
+
+def test_fused_slice_matches_jax(jax_fused_model, torch_fused_model):
+    """fuse_ffn + fuse_convnext on both sides: the JAX Pallas kernels run in
+    interpret mode off-TPU, the port's wrappers their plain versions; a
+    mixed-size batch (host resize per image, grouped postprocess)."""
+    model = torch_fused_model.model
+    assert all(b.mlp.fused for s in range(1, 5) for b in getattr(model.backbone, f"block{s}"))
+    assert all(b.fused for stage in model.param_net.backbone.stages for b in stage)
+    imgs = list(_images())
+    for g, w in zip(torch_fused_model.inference_batch(imgs), jax_fused_model.inference_batch(imgs)):
+        _assert_same(g, w)
+
+
+def test_fused_flags_default_off_and_keep_the_state_dict(torch_model, torch_fused_model):
+    assert not torch_model.fuse_ffn and not torch_model.fuse_convnext
+    plain_sd, fused_sd = torch_model.model.state_dict(), torch_fused_model.model.state_dict()
+    assert list(plain_sd) == list(fused_sd)
+    assert all(torch.equal(plain_sd[k], fused_sd[k]) for k in plain_sd)
+
+
+def test_model_zoo_copy_matches_jax():
+    assert list(model_zoo) == list(jax_model_zoo)
+    for version, entry in model_zoo.items():
+        want = jax_model_zoo[version]
+        assert entry["description"] == want["description"]
+        assert dataclasses.asdict(entry["config"]) == dataclasses.asdict(want["config"]), version
+
+
+def test_checkpoint_name_maps_match_jax(jax_model):
+    """The port's copies of flax_to_torch_names and map_torch_name equal the
+    JAX package's on a random tree of the whole model."""
+    rng = np.random.default_rng(7)
+    tree = jax.tree.map(lambda a: rng.normal(size=a.shape).astype(np.float32), jax_model.params)
+    got, want = checkpoint.flax_to_torch_names(tree), torch_convert.flax_to_torch_names(tree)
+    assert list(got) == list(want)
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name])
+        assert checkpoint.map_torch_name(name) == torch_convert.map_torch_name(name)
+    for name in ("ll_enc.bn1.num_batches_tracked", "pixel_mean"):
+        assert checkpoint.map_torch_name(name) is torch_convert.map_torch_name(name) is None
 
 
 def test_output_contract(torch_model):
@@ -203,12 +266,15 @@ def test_native_preprocess_is_bit_exact_pil():
 
 
 def test_port_runs_without_jax():
-    """The card's machine has no JAX: import the port and run a tiny CPU
-    forward with jax and flax made unimportable."""
+    """The card's machine has no JAX: import the port and chip_smoke's
+    imports, and run a tiny CPU forward with the fused flags, with jax,
+    flax and the JAX package made unimportable."""
     code = (
-        "import sys; sys.modules['jax'] = None; sys.modules['flax'] = None\n"
+        "import sys\n"
+        "for name in ('jax', 'flax', 'perspectivefields_tpu'): sys.modules[name] = None\n"
         "import numpy as np, warnings\n"
-        "from perspectivefields_tpu.config import *\n"
+        "import chip_smoke\n"
+        "from perspectivefields_tpu_torch.config import *\n"
         "from perspectivefields_tpu_torch import PerspectiveFields\n"
         "cfg = ModelConfig(version='custom', backbone=BackboneConfig(dims=(64, 128, 192, 256), "
         "depths=(1, 1, 1, 1), num_heads=(1, 2, 3, 4)), "
@@ -216,10 +282,12 @@ def test_port_runs_without_jax():
         "latitude=LatitudeHeadConfig(loss_type='regression', embed_dim=16, fusion_dim=16), "
         "param=ParamNetConfig(name='ParamNet'), recover_rpf=True, resize=(32, 32))\n"
         "warnings.simplefilter('ignore')\n"
-        "m = PerspectiveFields('custom', config=cfg, device='cpu')\n"
+        "m = PerspectiveFields('custom', config=cfg, device='cpu', fuse_ffn=True, fuse_convnext=True)\n"
         "p = m.inference(np.zeros((40, 50, 3), np.uint8))\n"
         "assert p['pred_gravity_original'].shape == (40, 50, 2)\n"
-        "assert not any(k == 'jax' or k.startswith(('jax.', 'flax')) for k in sys.modules if sys.modules[k] is not None)\n"
+        "loaded = [k for k in sys.modules if sys.modules[k] is not None]\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'flax')) for k in loaded)\n"
+        "assert not any(k.split('.')[0] == 'perspectivefields_tpu' for k in loaded)\n"
         "print('ok')\n"
     )
     out = subprocess.run(

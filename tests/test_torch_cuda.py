@@ -1,4 +1,4 @@
-"""GPU tests of the port's CUDA kernel (marker ``cuda``; they skip without
+"""GPU tests of the port's CUDA kernels (marker ``cuda``; they skip without
 an NVIDIA GPU). This file imports no JAX, so it runs on a machine without
 it: ``python -m pytest tests/test_torch_cuda.py --noconftest -q`` (the
 repository's conftest imports JAX)."""
@@ -7,9 +7,12 @@ import numpy as np
 import pytest
 import torch
 
+from perspectivefields_tpu_torch.kernels import convnext_block as cb
 from perspectivefields_tpu_torch.kernels import fused_attention as fa
+from perspectivefields_tpu_torch.kernels import mixffn as mf
 from perspectivefields_tpu_torch.models.common import init_random_
-from perspectivefields_tpu_torch.models.mit import SRAttention
+from perspectivefields_tpu_torch.models.convnext import ConvNeXtBlock
+from perspectivefields_tpu_torch.models.mit import MixFFN, SRAttention
 
 
 @pytest.fixture
@@ -72,3 +75,89 @@ def test_kernel_refuses_instead_of_falling_back(cuda_device):
     args = _args(1, 8, 4, 128, torch.float32)
     with pytest.raises(ValueError, match="head_dim"):
         fa.fused_attention(*args, 4, 0.125)  # head_dim 32
+
+
+def _randn(rng, *shape, scale=1.0, dtype=torch.float32):
+    return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32, device="cuda").to(dtype)
+
+
+def _ffn_args(b, h, w, c, dtype, seed=0):
+    """x and MixFFN weights: Linear (out, in), depthwise (4C, 1, 3, 3)."""
+    rng = np.random.default_rng(seed)
+    shapes = [((b, h, w, c), 1.0), ((4 * c, c), c**-0.5), ((4 * c,), 0.1),
+              ((4 * c, 1, 3, 3), 1 / 3), ((4 * c,), 0.1), ((c, 4 * c), (4 * c) ** -0.5),
+              ((c,), 0.1)]
+    return [_randn(rng, *s, scale=k, dtype=dtype) for s, k in shapes]
+
+
+def _cnx_args(b, h, w, c, dtype, seed=0):
+    """x and ConvNeXt-block weights: depthwise (C, 1, 7, 7), LN affine,
+    Linear (out, in), layer scale of order 1."""
+    rng = np.random.default_rng(seed)
+    shapes = [((b, h, w, c), 1.0), ((c, 1, 7, 7), 1 / 7), ((c,), 0.1), ((c,), 0.1),
+              ((c,), 0.1), ((4 * c, c), c**-0.5), ((4 * c,), 0.1), ((c, 4 * c), (4 * c) ** -0.5),
+              ((c,), 0.1), ((c,), 0.5)]
+    args = [_randn(rng, *s, scale=k, dtype=dtype) for s, k in shapes]
+    args[3] = args[3] + 1.0  # LayerNorm scale near 1
+    return args
+
+
+def _assert_kernel_close(got, want, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:  # bf16 vs the f32 plain version on the same rounded inputs
+        assert (got.float() - want).abs().max() / want.abs().max() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,h,w,c", [(8, 80, 80, 64), (8, 40, 40, 128), (8, 20, 20, 320), (8, 10, 10, 512), (3, 13, 7, 64)],
+)
+def test_mixffn_kernel_matches_plain_version(cuda_device, b, h, w, c, dtype):
+    args = _ffn_args(b, h, w, c, dtype)
+    before = mf.LAUNCHES
+    got = mf.mixffn(*args)
+    torch.cuda.synchronize()
+    assert mf.LAUNCHES == before + 1
+    _assert_kernel_close(got, mf.mixffn_reference(*[a.float() for a in args]), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,h,w,c", [(8, 80, 80, 96), (8, 40, 40, 192), (8, 20, 20, 384), (8, 10, 10, 768), (3, 13, 7, 64)],
+)
+def test_convnext_block_kernel_matches_plain_version(cuda_device, b, h, w, c, dtype):
+    args = _cnx_args(b, h, w, c, dtype)
+    before = cb.LAUNCHES
+    got = cb.convnext_block(*args)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES == before + 1
+    _assert_kernel_close(got, cb.convnext_block_reference(*[a.float() for a in args]), dtype)
+
+
+@pytest.mark.cuda
+def test_fused_modules_match_unfused_modules_in_f32(cuda_device):
+    x = torch.tensor(np.random.default_rng(3).normal(size=(2, 20, 20, 320)),
+                     dtype=torch.float32, device="cuda")
+    ffn = {f: init_random_(MixFFN(320, 1280, fused=f), seed=4).cuda().eval() for f in (True, False)}
+    blk = {f: init_random_(ConvNeXtBlock(320, fused=f), seed=4).cuda().eval() for f in (True, False)}
+    with torch.no_grad():
+        for m in blk.values():
+            m.gamma.fill_(0.5)
+        before = (mf.LAUNCHES, cb.LAUNCHES)
+        torch.testing.assert_close(ffn[True](x), ffn[False](x), atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(blk[True](x), blk[False](x), atol=1e-4, rtol=1e-4)
+    assert (mf.LAUNCHES, cb.LAUNCHES) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_fused_kernels_refuse_instead_of_falling_back(cuda_device):
+    ffn = _ffn_args(1, 4, 4, 64, torch.float32)
+    ffn[0] = ffn[0][..., :48].contiguous()  # C % 32 != 0
+    with pytest.raises(ValueError, match="C % 32"):
+        mf.mixffn(*ffn)
+    cnx = _cnx_args(1, 4, 4, 64, torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        cb.convnext_block(*cnx)

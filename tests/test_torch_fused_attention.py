@@ -6,6 +6,8 @@ oracle, in float32. The CUDA kernel itself runs only on a card: see
 tests/test_torch_cuda.py and ``python3 chip_smoke.py``.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +19,9 @@ from perspectivefields_tpu.kernels.fused_attention import (
 )
 from perspectivefields_tpu_torch.kernels import build as build_mod
 from perspectivefields_tpu_torch.kernels import fused_attention as fa
+from perspectivefields_tpu_torch.kernels import roofline
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SHAPES = [
     (1, 16, 8, 64, 1),       # the shapes of tests/test_fused_attention.py
@@ -158,3 +163,21 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(build_mod, "BUILD_DIR", tmp_path)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build_mod.build("fused_attention")
+
+
+def test_roofline_covers_every_tpu_kernel():
+    """Each function that reaches pl.pallas_call has a row, with the
+    pallas_call's file:line, and a positive bound per forward."""
+    rows = roofline.flagship(8)
+    assert set(rows) == {"fused_attention", "stage1_attention", "mixffn", "convnext_block",
+                         "decoder_tail", "fused_block"}
+    for where, calls in rows.values():
+        path, line = where.rsplit(":", 1)
+        with open(os.path.join(_REPO, path)) as f:
+            assert "pallas_call(" in f.read().splitlines()[int(line) - 1]
+        ms, by = roofline.per_forward(calls)
+        assert ms > 0 and by in ("bytes", "operations")
+    # the attention sub-block at stage 3, B=8: 2*8*400*320*320*2 + ... FLOPs
+    tc, nbytes, _ = roofline.attention_cost(8, 400, 100, 320, 5)
+    assert tc == 2 * 8 * 400 * 320**2 * 2 + 2 * 8 * 100 * 320 * 640 + 4 * 8 * 400 * 100 * 320
+    assert nbytes == 2 * (2 * 8 * 400 * 320 + 8 * 100 * 320 + 4 * 320**2 + 4 * 320)
