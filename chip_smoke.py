@@ -4,22 +4,25 @@
 
 Phases (each fails loudly; nothing is caught and turned into success):
   0. probe: the card (nvidia-smi name and power limit), torch, CUDA, nvcc;
-  1. build the three CUDA kernels from perspectivefields_tpu_torch/csrc, one
+  1. build the five CUDA kernels from perspectivefields_tpu_torch/csrc, one
      nvcc each, all started together; print ptxas's register/spill lines;
   2. each kernel vs its plain PyTorch version at the main path's shapes (B=8),
      f32 and bf16, plus a ragged case; device times of the kernel, its plain
-     version and (for fused_attention) one PyTorch library call, each from
-     CUDA events around 30 back-to-back calls; each kernel's bound;
+     version and, where one exists, one PyTorch library call, each from CUDA
+     events around 30 back-to-back calls; the module paths the kernels stand
+     in for; each kernel's bound;
   3. the slice: PerspectiveFields("Paramnet-360Cities-edina-centered") in
      bf16 with seeded random weights answers 3 batches of 8 640x640 images
-     and one 480x640 image through inference_batch / inference, once on the
-     default path (fused_attention: 25 launches per forward) and once with
-     fuse_ffn + fuse_convnext (25 / 28 / 18 launches of fused_attention /
-     mixffn / convnext_block per forward);
-  4. f32 parity against the plain path from the same weights: the kernel
-     path, and the fused path (all three kernels);
-  5. throughput of inference_batch at B=32, bf16: plain, kernel and fused
-     paths in interleaved windows, with a split of one batch.
+     and one 480x640 image through inference_batch / inference on three
+     paths (launches per forward): default (fused_attention 25), fused =
+     fuse_ffn + fuse_convnext (fused_attention 25, mixffn 28, convnext_block
+     18) and block = fuse_block (stage1_attention 3, fused_attention 4,
+     fused_block 21);
+  4. f32 parity against the plain path from the same weights: the kernel,
+     fused and block paths, and all_fused = fuse_block + fuse_ffn +
+     fuse_convnext (3 / 4 / 21 / mixffn 7 / convnext_block 18);
+  5. throughput of inference_batch at B=32, bf16: plain, kernel, fused and
+     block paths in interleaved windows, with a split of one batch.
 
 The line before the last is a JSON object with the kernels' launch counts,
 errors, times and bounds; the last line is {"ok": true, "device": {...}}.
@@ -44,8 +47,10 @@ from perspectivefields_tpu_torch.config import model_zoo
 from perspectivefields_tpu_torch.kernels import build as kbuild
 from perspectivefields_tpu_torch.kernels import convnext_block as cb
 from perspectivefields_tpu_torch.kernels import fused_attention as fa
+from perspectivefields_tpu_torch.kernels import fused_block as fb
 from perspectivefields_tpu_torch.kernels import mixffn as mf
 from perspectivefields_tpu_torch.kernels import roofline
+from perspectivefields_tpu_torch.kernels import stage1_attention as s1
 from perspectivefields_tpu_torch.models import PersNet
 from perspectivefields_tpu_torch.models.common import init_random_
 from perspectivefields_tpu_torch.models.convnext import ConvNeXtBlock
@@ -61,12 +66,31 @@ LAUNCHES_PER_FORWARD = sum(s[3] for s in STAGES.values())
 FFN_STAGES = {1: (80, 64, 3), 2: (40, 128, 4), 3: (20, 320, 18), 4: (10, 512, 3)}
 # ParamNet's ConvNeXt-T over the 320^2 field: (H = W, C, blocks) (3 + 3 + 9 + 3)
 CNX_STAGES = {0: (80, 96, 3), 1: (40, 192, 3), 2: (20, 384, 9), 3: (10, 768, 3)}
-FUSED_LAUNCHES = {
-    "fused_attention": LAUNCHES_PER_FORWARD,
-    "mixffn": sum(s[2] for s in FFN_STAGES.values()),
-    "convnext_block": sum(s[2] for s in CNX_STAGES.values()),
+# MiT-b3 stage 1 at 320^2: (N, M, blocks); the fused block's stages 3-4:
+# (H = W, C, heads, blocks)
+STAGE1 = (6400, 100, 3)
+BLOCK_STAGES = {3: (20, 320, 5, 18), 4: (10, 512, 8, 3)}
+KERNELS = {"fused_attention": fa, "stage1_attention": s1, "mixffn": mf,
+           "convnext_block": cb, "fused_block": fb}
+# Each path's PerspectiveFields flags and its kernels' launches per forward
+PATHS = {
+    "default": ({}, {"fused_attention": LAUNCHES_PER_FORWARD}),
+    "fused": (dict(fuse_ffn=True, fuse_convnext=True),
+              {"fused_attention": LAUNCHES_PER_FORWARD,
+               "mixffn": sum(s[2] for s in FFN_STAGES.values()),
+               "convnext_block": sum(s[2] for s in CNX_STAGES.values())}),
+    "block": (dict(fuse_block=True),
+              {"stage1_attention": STAGE1[2], "fused_attention": STAGES[2][3],
+               "fused_block": sum(s[3] for s in BLOCK_STAGES.values())}),
+    "all_fused": (dict(fuse_ffn=True, fuse_convnext=True, fuse_block=True),
+                  {"stage1_attention": STAGE1[2], "fused_attention": STAGES[2][3],
+                   "fused_block": sum(s[3] for s in BLOCK_STAGES.values()),
+                   "mixffn": FFN_STAGES[1][2] + FFN_STAGES[2][2],
+                   "convnext_block": sum(s[2] for s in CNX_STAGES.values())}),
 }
-KERNELS = {"fused_attention": fa, "mixffn": mf, "convnext_block": cb}
+# The path whose run gives each kernel's launch count in the kernels line
+LAUNCH_PATH = {"fused_attention": "default", "stage1_attention": "block", "mixffn": "fused",
+               "convnext_block": "fused", "fused_block": "block"}
 F32_TOL = 1e-4  # atol and rtol, f32 kernel vs f32 plain version
 BF16_REL_TOL = 1e-2  # max|d| / max|ref|, bf16 kernel vs f32 plain version
 FIELD_TOL, DEGREE_TOL = 5e-4, 1e-3  # tests/test_reference_parity.py:104-133
@@ -322,11 +346,150 @@ def _fused_kernel_phase(name, mod, fn, ref, make_inputs, stages, cost, module_pa
     return {"max_abs_err": max_abs, **tot, "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
+def stage1_kernel_phase() -> dict:
+    """stage1_attention vs its plain version at stage 1 (B=8) and a ragged
+    case, f32 and bf16, with and without the residual; then bf16 times of
+    the kernel, its plain version, F.multi_head_attention_forward (the
+    library call; the port never calls it), fused_attention at the same
+    shape, and SRAttention's stage-1 route vs its plain path."""
+    n1, m1, blocks = STAGE1
+    max_abs, failures = 0.0, []
+    for b, n, m in [(8, n1, m1), (3, 999, 37)]:
+        rng = np.random.default_rng(b * 1000 + n + m)
+        args = _attn_inputs(rng, b, n, m, 64)
+        res = _randn(rng, b, n, 64)
+        for dtype in (torch.float32, torch.bfloat16):
+            for residual in (None, res):
+                a = [t.to(dtype) for t in args]
+                r = None if residual is None else residual.to(dtype)
+                before = s1.LAUNCHES
+                got = s1.stage1_attention(*a, 0.125, residual=r)
+                torch.cuda.synchronize()
+                if s1.LAUNCHES != before + 1:
+                    raise AssertionError("stage1_attention: the wrapper did not launch its kernel")
+                want = s1.stage1_attention_reference(
+                    *[t.float() for t in a], 0.125, residual=None if r is None else r.float()
+                )
+                tag = f"B={b} N={n} M={m} residual={r is not None}"
+                err, ok = _check("stage1_attention", tag, got, want, dtype)
+                max_abs = max(max_abs, err)
+                if not ok:
+                    failures.append(f"{tag} {dtype}")
+    if failures:
+        raise AssertionError(f"stage1_attention disagrees with its plain version: {failures}")
+
+    rng = np.random.default_rng(1)
+    a = [t.to(torch.bfloat16) for t in _attn_inputs(rng, 8, n1, m1, 64)]
+    x, kv_in, wq, bq, wkv, bkv, wp, bp = a
+    xt, kvt, bias = x.transpose(0, 1), kv_in.transpose(0, 1), torch.cat([bq, bkv])
+
+    def library():
+        return F.multi_head_attention_forward(
+            xt, kvt, kvt, 64, 1, None, bias, None, None, False, 0.0, wp, bp,
+            training=False, need_weights=False, use_separate_proj_weight=True,
+            q_proj_weight=wq, k_proj_weight=wkv[:64], v_proj_weight=wkv[64:],
+        )[0]
+
+    with torch.inference_mode():
+        lib_d = (library().transpose(0, 1).float() - s1.stage1_attention(*a, 0.125).float())
+        lib_d = lib_d.abs().max().item()
+        t_k = device_ms(lambda: s1.stage1_attention(*a, 0.125))
+        t_p = device_ms(lambda: s1.stage1_attention_reference(*a, 0.125))
+        t_l = device_ms(library)
+        t_b1 = device_ms(lambda: fa.fused_attention(*a, 1, 0.125))
+    cost = roofline.attention_cost(8, n1, m1, 64, 1)
+    t_b, by = stage_bound(cost)
+    xm = _randn(rng, 8, 80, 80, 64).to(torch.bfloat16)
+    mods = {f: init_random_(SRAttention(64, 1, 8, use_kernels=True, fuse_block=f), seed=1).to(
+        "cuda", torch.bfloat16).eval() for f in (True, False)}
+    with torch.inference_mode():
+        t_mk = device_ms(lambda: mods[True](xm))
+        t_mp = device_ms(lambda: mods[False](xm))
+    log(f"[kernel] stage1_attention stage 1 bf16 B=8 N={n1} M={m1}: kernel {t_k:.4f} ms, plain "
+        f"version {t_p:.4f} ms, F.multi_head_attention_forward {t_l:.4f} ms (max|d| vs kernel "
+        f"{lib_d:.2e}), fused_attention at this shape {t_b1:.4f} ms, bound {t_b:.4f} ms ({by}); "
+        f"SRAttention stage-1 route {t_mk:.4f} ms, plain path {t_mp:.4f} ms")
+    bound, by = roofline.per_forward([(cost, blocks)])
+    return {"max_abs_err": max_abs, "ms": blocks * t_k, "plain_ms": blocks * t_p,
+            "bound_ms": bound, "bound_by": by, "library_ms": blocks * t_l}
+
+
+def _block_inputs(rng, b, h, w, c, m):
+    """ln1x, kv_in, res and a MiT block's weights, scaled as in
+    tests/test_fused_block.py:24-34; torch layouts."""
+    n, hid = h * w, 4 * c
+    args = [_randn(rng, b, n, c, scale=0.5), _randn(rng, b, m, c, scale=0.5),
+            _randn(rng, b, n, c, scale=0.5)]
+    for shape in [(c, c), (c,), (2 * c, c), (2 * c,), (c, c), (c,), (c,), (c,), (hid, c), (hid,),
+                  (hid, 1, 3, 3), (hid,), (c, hid), (c,)]:
+        args.append(_randn(rng, *shape, scale=0.05))
+    args[9] = args[9] + 1.0  # the LayerNorm scale near 1
+    return args
+
+
+def block_kernel_phase() -> dict:
+    """fused_block vs its plain version at stages 3-4 (B=8) and a ragged 7x5
+    grid, f32 and bf16; then bf16 times of the kernel, its plain version and
+    the unfused path it stands in for after LN1 (fused_attention with the
+    residual, LayerNorm, the unfused MixFFN, the skip). No single PyTorch
+    call computes the block."""
+    cases = [(8, hw, hw, c, heads, 100) for hw, c, heads, _ in BLOCK_STAGES.values()]
+    max_abs, failures = 0.0, []
+    for b, h, w, c, heads, m in cases + [(3, 7, 5, 128, 2, 7)]:
+        args = _block_inputs(np.random.default_rng(b * 1000 + h + w + c), b, h, w, c, m)
+        for dtype in (torch.float32, torch.bfloat16):
+            a = [t.to(dtype) for t in args]
+            before = fb.LAUNCHES
+            got = fb.fused_block(*a, heads, 64**-0.5, h, w)
+            torch.cuda.synchronize()
+            if fb.LAUNCHES != before + 1:
+                raise AssertionError("fused_block: the wrapper did not launch its kernel")
+            want = fb.fused_block_reference(*[t.float() for t in a], heads, 64**-0.5, h, w)
+            tag = f"B={b} H={h} W={w} C={c} heads={heads} M={m}"
+            err, ok = _check("fused_block", tag, got, want, dtype)
+            max_abs = max(max_abs, err)
+            if not ok:
+                failures.append(f"{tag} {dtype}")
+    if failures:
+        raise AssertionError(f"fused_block disagrees with its plain version: {failures}")
+
+    tot = dict(ms=0.0, plain_ms=0.0)
+    costs = []
+    for stage, (hw, c, heads, blocks) in BLOCK_STAGES.items():
+        a = [t.to(torch.bfloat16) for t in _block_inputs(np.random.default_rng(stage), 8, hw, hw, c, 100)]
+        ln1x, kv_in, res, wq, bq, wkv, bkv, wp, bp, lns, lnb, w1, b1, dwk, dwb, w2, b2 = a
+        ffn = MixFFN(c, 4 * c).to("cuda", torch.bfloat16).eval()
+        ffn.load_state_dict({"fc1.weight": w1, "fc1.bias": b1, "dwconv.dwconv.weight": dwk,
+                             "dwconv.dwconv.bias": dwb, "fc2.weight": w2, "fc2.bias": b2})
+
+        def unfused():
+            x2 = fa.fused_attention(ln1x, kv_in, wq, bq, wkv, bkv, wp, bp, heads, 64**-0.5,
+                                    residual=res)
+            y = F.layer_norm(x2, (c,), lns, lnb, 1e-6)
+            return x2 + ffn(y.view(8, hw, hw, c)).reshape(8, hw * hw, c)
+
+        with torch.inference_mode():
+            t_k = device_ms(lambda: fb.fused_block(*a, heads, 64**-0.5, hw, hw))
+            t_p = device_ms(lambda: fb.fused_block_reference(*a, heads, 64**-0.5, hw, hw))
+            t_u = device_ms(unfused)
+        costs.append((roofline.fused_block_cost(8, hw, 100, c, heads), blocks))
+        t_b, by = stage_bound(costs[-1][0])
+        th, tw = fb.choose_tile(8, hw, hw, c, heads, torch.bfloat16, mf.sm_count(ln1x.device))
+        log(f"[kernel] fused_block stage {stage} bf16 B=8 {hw}x{hw} C={c} heads={heads} tile "
+            f"{th}x{tw}: kernel {t_k:.4f} ms, plain version {t_p:.4f} ms, bound {t_b:.4f} ms "
+            f"({by}); unfused block path after LN1 {t_u:.4f} ms")
+        for key, v in zip(tot, (t_k, t_p)):
+            tot[key] += blocks * v
+    bound, by = roofline.per_forward(costs)
+    return {"max_abs_err": max_abs, **tot, "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
 def kernel_phase() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return {
         "fused_attention": attention_kernel_phase(),
+        "stage1_attention": stage1_kernel_phase(),
         "mixffn": _fused_kernel_phase(
             "mixffn", mf, mf.mixffn, mf.mixffn_reference, _ffn_inputs, FFN_STAGES,
             roofline.mixffn_cost,
@@ -337,6 +500,7 @@ def kernel_phase() -> dict:
             CNX_STAGES, roofline.convnext_block_cost,
             lambda c, fused: ConvNeXtBlock(c, fused=fused),
         ),
+        "fused_block": block_kernel_phase(),
     }
 
 
@@ -379,16 +543,19 @@ def _reset_counts() -> None:
         mod.LAUNCHES = 0
 
 
-def slice_phase(sd, fused: bool) -> dict:
-    """Drive one path: the default bf16 path, or fuse_ffn + fuse_convnext.
-    Every count is set to 0 just before and read just after."""
-    tag = "fused" if fused else "default"
+def _expected(path: str, forwards: int = 1) -> dict:
+    return {name: PATHS[path][1].get(name, 0) * forwards for name in KERNELS}
+
+
+def slice_phase(sd, path: str) -> dict:
+    """Drive one bf16 path (PATHS). Every count is set to 0 just before and
+    read just after."""
     rng = np.random.default_rng(SEED)
     model = PerspectiveFields(VERSION, params=sd, compute_dtype="bfloat16", device="cuda",
-                              fuse_ffn=fused, fuse_convnext=fused)
+                              **PATHS[path][0])
     if not model.use_kernels:
-        raise AssertionError("the default bf16 CUDA model must use the attention kernel")
-    log(f"[slice:{tag}] host preprocess backend: {native.backend()}")
+        raise AssertionError("the default bf16 CUDA model must use the attention kernels")
+    log(f"[slice:{path}] host preprocess backend: {native.backend()}")
     batches = [rng.integers(0, 256, size=(8, 640, 640, 3), dtype=np.uint8) for _ in range(3)]
     single = rng.integers(0, 256, size=(480, 640, 3), dtype=np.uint8)
     model.inference_batch(list(batches[0]))  # warm-up, before the count
@@ -400,15 +567,14 @@ def slice_phase(sd, fused: bool) -> dict:
     torch.cuda.synchronize()
     launches = {name: mod.LAUNCHES for name, mod in KERNELS.items()}
     forwards = len(batches) + 1
-    want = {name: (n if fused or name == "fused_attention" else 0) * forwards
-            for name, n in FUSED_LAUNCHES.items()}
-    log(f"[slice:{tag}] {len(preds)} images in {forwards} forwards: launches {launches}")
+    want = _expected(path, forwards)
+    log(f"[slice:{path}] {len(preds)} images in {forwards} forwards: launches {launches}")
     if launches != want:
-        raise AssertionError(f"[slice:{tag}] want launches {want}, got {launches}")
+        raise AssertionError(f"[slice:{path}] want launches {want}, got {launches}")
     for p in preds[:-1]:
         check_contract(p, (640, 640))
     check_contract(preds[-1], (480, 640))
-    log(f"[slice:{tag}] output contract ok; image 0: roll {float(preds[0]['pred_roll']):.4f} "
+    log(f"[slice:{path}] output contract ok; image 0: roll {float(preds[0]['pred_roll']):.4f} "
         f"pitch {float(preds[0]['pred_pitch']):.4f} vfov {float(preds[0]['pred_vfov']):.4f}")
     return launches
 
@@ -437,11 +603,10 @@ def f32_parity_phase(sd) -> None:
     want = plain.inference_batch(imgs)
     if any(mod.LAUNCHES for mod in KERNELS.values()):
         raise AssertionError("the plain model launched a kernel")
-    paths = {
-        "kernel": PerspectiveFields(VERSION, params=sd, device="cuda", use_kernels=True),
-        "fused": PerspectiveFields(VERSION, params=sd, device="cuda", use_kernels=True,
-                                   fuse_ffn=True, fuse_convnext=True),
-    }
+    paths = {tag: PerspectiveFields(VERSION, params=sd, device="cuda", use_kernels=True,
+                                    **PATHS[path][0])
+             for tag, path in [("kernel", "default"), ("fused", "fused"), ("block", "block"),
+                               ("all_fused", "all_fused")]}
     x = torch.from_numpy(
         native.preprocess_batch(np.stack(imgs), 320, 320, plain._pixel_mean, plain._pixel_std)
     ).cuda()
@@ -449,8 +614,7 @@ def f32_parity_phase(sd) -> None:
         _reset_counts()
         got = model.inference_batch(imgs)
         counts = {name: mod.LAUNCHES for name, mod in KERNELS.items()}
-        expect = {name: n if tag == "fused" or name == "fused_attention" else 0
-                  for name, n in FUSED_LAUNCHES.items()}
+        expect = _expected("default" if tag == "kernel" else tag)
         if counts != expect:
             raise AssertionError(f"f32 {tag} model launched {counts}, want {expect}")
         with torch.inference_mode():
@@ -478,11 +642,13 @@ def throughput_phase(sd, card: str) -> None:
                                    use_kernels=False),
         "kernel": PerspectiveFields(VERSION, params=sd, compute_dtype="bfloat16", device="cuda"),
         "fused": PerspectiveFields(VERSION, params=sd, compute_dtype="bfloat16", device="cuda",
-                                   fuse_ffn=True, fuse_convnext=True),
+                                   **PATHS["fused"][0]),
+        "block": PerspectiveFields(VERSION, params=sd, compute_dtype="bfloat16", device="cuda",
+                                   **PATHS["block"][0]),
     }
     reps = 5
     rates = {k: [] for k in models}
-    for name in ("plain", "kernel", "fused", "fused", "kernel", "plain"):
+    for name in ("plain", "kernel", "fused", "block", "block", "fused", "kernel", "plain"):
         m = models[name]
         m.inference_batch(batch)
         torch.cuda.synchronize()
@@ -513,8 +679,7 @@ def main() -> int:
     build_phase()
     kstats = kernel_phase()
     sd = seeded_state_dict(model_zoo[VERSION]["config"])
-    launches = slice_phase(sd, fused=False)
-    fused_launches = slice_phase(sd, fused=True)
+    launches = {path: slice_phase(sd, path) for path in ("default", "fused", "block")}
     f32_parity_phase(sd)
     throughput_phase(sd, card)
     log(card_line())
@@ -525,7 +690,7 @@ def main() -> int:
             "route": "cuda",
             "source": f"perspectivefields_tpu_torch/csrc/{name}.cu",
             "replaces": roofline.flagship()[name][0],
-            "launches": launches[name] if name == "fused_attention" else fused_launches[name],
+            "launches": launches[LAUNCH_PATH[name]][name],
             **stats,
         })
     print(json.dumps({"kernels": kernels}))

@@ -59,10 +59,14 @@ class PerspectiveFields:
         device: torch device; None means "cuda" and raises without one.
         use_kernels: route eligible attention blocks to the CUDA kernel.
             None means "on a CUDA device, in bfloat16".
-        fuse_ffn / fuse_convnext: run every MixFFN / every ParamNet
-            ConvNeXt block as one fused kernel (the CUDA kernels on a CUDA
-            device, their plain versions on the CPU); the same state dict.
-            Off by default, as in the JAX package.
+        fuse_ffn / fuse_convnext / fuse_block: run every MixFFN / every
+            ParamNet ConvNeXt block / every MiT block that JAX's
+            ``fuse_block`` fuses (at 320^2 the 21 blocks of stages 3-4) as
+            one fused kernel (the CUDA kernels on a CUDA device, their plain
+            versions on the CPU); the same state dict. With ``use_kernels``,
+            ``fuse_block`` also sends stage 1's one-head attention to its
+            CUDA kernel. Inference only; off by default, as in the JAX
+            package.
     """
 
     def __init__(
@@ -75,6 +79,7 @@ class PerspectiveFields:
         use_kernels: bool | None = None,
         fuse_ffn: bool = False,
         fuse_convnext: bool = False,
+        fuse_block: bool = False,
     ):
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {list(_DTYPES)}")
@@ -91,10 +96,11 @@ class PerspectiveFields:
         self.param_on = config.param_on
         self.input_format = config.input_format
         self.use_kernels = use_kernels
-        self.fuse_ffn, self.fuse_convnext = fuse_ffn, fuse_convnext
+        self.fuse_ffn, self.fuse_convnext, self.fuse_block = fuse_ffn, fuse_convnext, fuse_block
 
         model = PersNet(
-            config, use_kernels=use_kernels, fuse_ffn=fuse_ffn, fuse_convnext=fuse_convnext
+            config, use_kernels=use_kernels, fuse_ffn=fuse_ffn, fuse_convnext=fuse_convnext,
+            fuse_block=fuse_block,
         )
         self._load_params(model, params)
         self.model = model.to(device=self.device, dtype=self.dtype).eval()

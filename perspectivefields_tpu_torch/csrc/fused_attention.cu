@@ -28,119 +28,13 @@
 // warp-level 16x16x16 MMAs (WMMA), f32 accumulation. float32 runs scalar
 // FMAs (the tensor cores' f32 input is TF32, which would not match f32).
 // Simple by intent: no wgmma, no TMA, no pipelining; weights are read
-// straight from L2. Making it fast is later work.
+// straight from L2. Making it fast is later work. The K/V projection, the
+// projection tiles and the softmax are shared with the other attention
+// kernels (attention_common.cuh).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stddef.h>
+#include "attention_common.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
-
-constexpr int kTQ = 32;           // query rows per block (and rows per KV tile)
-constexpr int kMaxM = 128;        // most keys a block holds
-constexpr int kHeadDim = 64;
-
-// ---------------------------------------------------------------------------
-// float32: scalar FMAs, 4 x 4 register tiles per thread
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 128;     // 16 x 8 threads
-constexpr int kWarps = kThreads / 32;
-
-constexpr int kCols = 64;         // output columns per GEMM chunk (= head_dim)
-constexpr int kKT = 32;           // reduction depth staged per step
-constexpr int kWsLd = kCols + 1;  // padded row of the staged weight tile
-constexpr int kKtLd = kMaxM + 1;  // padded row of the transposed K tile
-
-// ws[kk][jj] = W[j0 + jj][k0 + kk] for a 64 x 32 slice of W (ld = ldw).
-__device__ __forceinline__ void stage_w(float* ws, const float* __restrict__ w,
-                                        int ldw, int j0, int k0) {
-  for (int i = threadIdx.x; i < kCols * kKT; i += kThreads) {
-    const int jj = i / kKT, kk = i % kKT;
-    ws[kk * kWsLd + jj] = w[(size_t)(j0 + jj) * ldw + k0 + kk];
-  }
-}
-
-// acc = A[0:32, 0:K] . W[j0:j0+64, 0:K]^T with A in shared memory (ld lda).
-// Thread (tx, ty) owns rows ty + 8i and columns j0 + tx + 16c.
-__device__ __forceinline__ void gemm_chunk(float (&acc)[4][4], const float* a,
-                                           int lda, const float* __restrict__ w,
-                                           int K, int j0, float* ws) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += kKT) {
-    __syncthreads();  // the previous weight tile is consumed
-    stage_w(ws, w, K, j0, k0);
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kKT; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = a[(ty + 8 * i) * lda + k0 + kk];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) bv[c] = ws[kk * kWsLd + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(av[i], bv[c], acc[i][c]);
-    }
-  }
-}
-
-// out[R, J] = a[R, K] . w[J, K]^T + bias; one block per 32 x 64 tile.
-__global__ void __launch_bounds__(kThreads)
-    kv_proj_f32(const float* __restrict__ a, const float* __restrict__ w,
-                const float* __restrict__ bias, float* __restrict__ out, int R,
-                int K, int J) {
-  __shared__ float as[kTQ][kKT + 1];
-  __shared__ float ws[kKT * kWsLd];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int r0 = blockIdx.x * kTQ, j0 = blockIdx.y * kCols;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += kKT) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kTQ * kKT; i += kThreads) {
-      const int r = i / kKT, kk = i % kKT;
-      as[r][kk] = r0 + r < R ? a[(size_t)(r0 + r) * K + k0 + kk] : 0.f;
-    }
-    stage_w(ws, w, K, j0, k0);
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kKT; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = as[ty + 8 * i][kk];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) bv[c] = ws[kk * kWsLd + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(av[i], bv[c], acc[i][c]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 8 * i;
-    if (r >= R) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = j0 + tx + 16 * c;
-      out[(size_t)r * J + j] = acc[i][c] + bias[j];
-    }
-  }
-}
 
 // One block: 32 query rows of image blockIdx.y, all heads, both projections.
 __global__ void __launch_bounds__(kThreads)
@@ -153,14 +47,13 @@ __global__ void __launch_bounds__(kThreads)
   float* xs = reinterpret_cast<float*>(smem);  // 32 x C: x, then concat(o_h)
   float* qs = xs + kTQ * C;                    // 32 x C: q
   float* ws = qs + kTQ * C;                    // staged weights
-  float* kt = ws + kKT * kWsLd;                // 64 x kKtLd: K_h transposed
+  float* kt = ws + kKT * kWtLd;                // 64 x kKtLd: K_h transposed
   float* vs = kt + kHeadDim * kKtLd;           // kMaxM x 64: V_h
   float* s = vs + kMaxM * kHeadDim;            // 32 x kMaxM: logits, then p
 
   const int b = blockIdx.y, n0 = blockIdx.x * kTQ;
   const int rows = min(kTQ, N - n0);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t two_c = 2 * (size_t)C;
 
   for (int i = threadIdx.x; i < kTQ * C; i += kThreads) {
@@ -224,30 +117,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     __syncthreads();
 
-    // softmax, one warp per row
-    for (int r = warp; r < kTQ; r += kWarps) {
-      float v[kMaxM / 32];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kMaxM / 32; ++j) {
-        v[j] = s[r * kMaxM + lane + 32 * j];
-        mx = fmaxf(mx, v[j]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kMaxM / 32; ++j) {
-        v[j] = expf(v[j] - mx);  // masked keys: exp(-inf) = 0
-        sum += v[j];
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-#pragma unroll
-      for (int j = 0; j < kMaxM / 32; ++j) s[r * kMaxM + lane + 32 * j] = v[j] / sum;
-    }
+    softmax_rows_f32(s, kTQ);
     __syncthreads();
 
     // o_h = p . v_h into this head's columns of xs
@@ -294,103 +164,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---------------------------------------------------------------------------
-// bfloat16: tensor-core 16x16x16 MMAs (WMMA), f32 accumulation
-// ---------------------------------------------------------------------------
-
-constexpr int kTcThreads = 256;          // 8 warps
-constexpr int kTcWarps = kTcThreads / 32;
-constexpr int kPad = 8;                  // bf16 row padding (16 bytes)
-constexpr int kHdLd = kHeadDim + kPad;   // rows of the K_h / V_h tiles
-constexpr int kPLd = kMaxM + kPad;       // rows of p
-constexpr int kSLd = kMaxM + 4;          // rows of the f32 logits
-constexpr int kKvK = 64;                 // K depth staged per step (kv proj)
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// acc[i] = A[16i:16i+16, 0:K] . W[n0:n0+16, 0:K]^T for i = 0, 1, with A a
-// 32-row bf16 tile in shared memory (ld lda) and W (out, in) in global
-// memory: W read as a column-major B operand (ld K).
-__device__ __forceinline__ void proj_tiles(FragC (&acc)[2], const bf16* a,
-                                           int lda, const bf16* __restrict__ w,
-                                           int K, int n0) {
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-#pragma unroll 4
-  for (int k = 0; k < K; k += 16) {  // K % 64 == 0
-    FragBCol bw;
-    wmma::load_matrix_sync(bw, w + (size_t)n0 * K + k, K);
-    FragA a0, a1;
-    wmma::load_matrix_sync(a0, a + k, lda);
-    wmma::load_matrix_sync(a1, a + 16 * lda + k, lda);
-    wmma::mma_sync(acc[0], a0, bw, acc[0]);
-    wmma::mma_sync(acc[1], a1, bw, acc[1]);
-  }
-}
-
-// Copy the warp's accumulator through its 16 x 16 f32 scratch; the caller's
-// functor sees (row in tile, col in tile, value) once per element.
-template <typename F>
-__device__ __forceinline__ void for_each_acc(const FragC& acc, float* scratch,
-                                             F&& f) {
-  const int lane = threadIdx.x % 32;
-  wmma::store_matrix_sync(scratch, acc, 16, wmma::mem_row_major);
-  __syncwarp();
-  for (int e = lane; e < 256; e += 32) f(e / 16, e % 16, scratch[e]);
-  __syncwarp();
-}
-
-__device__ __forceinline__ float rnd(float v) {
-  return __bfloat162float(__float2bfloat16(v));  // round to nearest even
-}
-
-// out[R, J] = bf16(a[R, K] . w[J, K]^T + bias); a block per 32 x 128 tile,
-// one 16-column strip per warp.
-__global__ void __launch_bounds__(kTcThreads)
-    kv_proj_bf16(const bf16* __restrict__ a, const bf16* __restrict__ w,
-                 const bf16* __restrict__ bias, bf16* __restrict__ out, int R,
-                 int K, int J) {
-  __shared__ __align__(128) bf16 as[kTQ * (kKvK + kPad)];
-  __shared__ __align__(128) float scratch[kTcWarps * 256];
-  const int warp = threadIdx.x / 32;
-  const int r0 = blockIdx.x * kTQ, n0 = blockIdx.y * 16 * kTcWarps + warp * 16;
-  constexpr int lda = kKvK + kPad;
-  FragC acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-  for (int k0 = 0; k0 < K; k0 += kKvK) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kTQ * kKvK / 8; i += kTcThreads) {
-      const int r = i / (kKvK / 8), v = i % (kKvK / 8);
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (r0 + r < R)
-        val = reinterpret_cast<const uint4*>(a + (size_t)(r0 + r) * K + k0)[v];
-      *reinterpret_cast<uint4*>(as + r * lda + v * 8) = val;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kKvK; k += 16) {
-      FragBCol bw;
-      wmma::load_matrix_sync(bw, w + (size_t)n0 * K + k0 + k, K);
-      FragA a0, a1;
-      wmma::load_matrix_sync(a0, as + k, lda);
-      wmma::load_matrix_sync(a1, as + 16 * lda + k, lda);
-      wmma::mma_sync(acc[0], a0, bw, acc[0]);
-      wmma::mma_sync(acc[1], a1, bw, acc[1]);
-    }
-  }
-  float* sc = scratch + warp * 256;
-  for (int i = 0; i < 2; ++i)
-    for_each_acc(acc[i], sc, [&](int r, int c, float v) {
-      const int row = r0 + 16 * i + r, col = n0 + c;
-      if (row < R)
-        out[(size_t)row * J + col] = __float2bfloat16(v + __bfloat162float(bias[col]));
-    });
-}
-
 __global__ void __launch_bounds__(kTcThreads)
     attn_block_bf16(const bf16* __restrict__ x, const bf16* __restrict__ kv,
                     const bf16* __restrict__ wq, const bf16* __restrict__ bq,
@@ -405,7 +178,7 @@ __global__ void __launch_bounds__(kTcThreads)
   bf16* vs = ks + kMaxM * kHdLd;             // kMaxM x kHdLd: V_h
   bf16* ps = vs + kMaxM * kHdLd;             // 32 x kPLd: p
   float* ss = reinterpret_cast<float*>(ps + kTQ * kPLd);  // 32 x kSLd logits
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
   float* sc = ss + kTQ * kSLd + warp * 256;  // this warp's 16 x 16 scratch
 
   const int b = blockIdx.y, n0 = blockIdx.x * kTQ;
@@ -426,7 +199,7 @@ __global__ void __launch_bounds__(kTcThreads)
   // q = bf16(x . Wq^T + bq)
   for (int nt = warp; nt < C / 16; nt += kTcWarps) {
     FragC acc[2];
-    proj_tiles(acc, xs, ldx, wq, C, nt * 16);
+    proj_tiles(acc, xs, ldx, wq, C, C, nt * 16);
     for (int i = 0; i < 2; ++i)
       for_each_acc(acc[i], sc, [&](int r, int c, float v) {
         const int col = nt * 16 + c;
@@ -472,33 +245,7 @@ __global__ void __launch_bounds__(kTcThreads)
     __syncthreads();
 
     // softmax in f32, one warp per row; p = bf16(softmax), 0 past M
-    for (int r = warp; r < kTQ; r += kTcWarps) {
-      float v[kMaxM / 32];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kMaxM / 32; ++j) {
-        const int m = lane + 32 * j;
-        v[j] = m < M ? ss[r * kSLd + m] * scale : -INFINITY;
-        mx = fmaxf(mx, v[j]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kMaxM / 32; ++j) {
-        v[j] = expf(v[j] - mx);  // masked keys: exp(-inf) = 0
-        sum += v[j];
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-#pragma unroll
-      for (int j = 0; j < kMaxM / 32; ++j) {
-        const int m = lane + 32 * j;
-        if (m < mp) ps[r * kPLd + m] = __float2bfloat16(v[j] / sum);
-      }
-    }
+    softmax_rows_bf16(ss, ps, kTQ, M, mp, scale);
     __syncthreads();
 
     // o_h = bf16(p . v_h): warp w owns rows 16(w/4).. and head columns
@@ -524,7 +271,7 @@ __global__ void __launch_bounds__(kTcThreads)
   // out = bf16(bf16(o . Wp^T + bp) + residual)
   for (int nt = warp; nt < C / 16; nt += kTcWarps) {
     FragC acc[2];
-    proj_tiles(acc, xs, ldx, wp, C, nt * 16);
+    proj_tiles(acc, xs, ldx, wp, C, C, nt * 16);
     for (int i = 0; i < 2; ++i)
       for_each_acc(acc[i], sc, [&](int r, int c, float v) {
         const int row = 16 * i + r, col = nt * 16 + c;
@@ -541,9 +288,8 @@ __global__ void __launch_bounds__(kTcThreads)
 // launches
 // ---------------------------------------------------------------------------
 
-template <typename T, typename KvKernel, typename AttnKernel>
-int launch(KvKernel kv_kernel, AttnKernel attn_kernel, int threads,
-           int kv_cols, size_t smem,
+template <typename T, typename AttnKernel>
+int launch(AttnKernel attn_kernel, int threads, size_t smem,
            const void* x, const void* kv_in, const void* wq, const void* bq,
            const void* wkv, const void* bkv, const void* wp, const void* bp,
            const void* res, void* kv_scratch, void* out, int B, int N, int M,
@@ -552,12 +298,8 @@ int launch(KvKernel kv_kernel, AttnKernel attn_kernel, int threads,
       attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
 
-  const int R = B * M, J = 2 * C;
-  kv_kernel<<<dim3((R + kTQ - 1) / kTQ, J / kv_cols), threads, 0, stream>>>(
-      static_cast<const T*>(kv_in), static_cast<const T*>(wkv),
-      static_cast<const T*>(bkv), static_cast<T*>(kv_scratch), R, C, J);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int kv_err = launch_kv_proj<T>(kv_in, wkv, bkv, kv_scratch, B * M, C, stream);
+  if (kv_err != 0) return kv_err;
 
   attn_kernel<<<dim3((N + kTQ - 1) / kTQ, B), threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(kv_scratch),
@@ -585,10 +327,9 @@ int pf_fused_attention(int dtype, const void* x, const void* kv_in,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const size_t smem =
-        (2 * (size_t)kTQ * C + kKT * kWsLd + kHeadDim * kKtLd +
+        (2 * (size_t)kTQ * C + kKT * kWtLd + kHeadDim * kKtLd +
          kMaxM * kHeadDim + kTQ * kMaxM) * sizeof(float);
-    return launch<float>(kv_proj_f32, attn_block_f32, kThreads, kCols, smem,
-                         x, kv_in, wq, bq,
+    return launch<float>(attn_block_f32, kThreads, smem, x, kv_in, wq, bq,
                          wkv, bkv, wp, bp, res, kv_scratch, out, B, N, M, C,
                          heads, scale, st);
   }
@@ -597,8 +338,7 @@ int pf_fused_attention(int dtype, const void* x, const void* kv_in,
         (2 * (size_t)kTQ * (C + kPad) + 2 * kMaxM * kHdLd + kTQ * kPLd) *
             sizeof(bf16) +
         ((size_t)kTQ * kSLd + kTcWarps * 256) * sizeof(float);
-    return launch<bf16>(kv_proj_bf16, attn_block_bf16, kTcThreads,
-                        16 * kTcWarps, smem, x, kv_in, wq, bq,
+    return launch<bf16>(attn_block_bf16, kTcThreads, smem, x, kv_in, wq, bq,
                         wkv, bkv, wp, bp, res, kv_scratch, out, B, N, M, C,
                         heads, scale, st);
   }

@@ -9,8 +9,12 @@ SRAttention sends blocks that pass ``kernels.fused_attention.use_kernel``
 (at 320^2: the 25 blocks of stages 2-4) to the hand-written CUDA kernel;
 the others run the plain path. ``fuse_ffn`` sends every MixFFN to the fused
 MixFFN (``kernels.mixffn``: the CUDA kernel for CUDA tensors, its plain
-version on the CPU), as JAX's ``fuse_ffn`` does. Stochastic depth is the
-identity at inference and is not ported.
+version on the CPU), as JAX's ``fuse_ffn`` does. ``fuse_block`` runs every
+block that JAX's ``fuse_block`` would fuse as one whole-block kernel
+(``kernels.fused_block``; at 320^2 the 21 blocks of stages 3-4), and with
+``use_kernels`` also sends stage 1's one-head attention to
+``kernels.stage1_attention``: each block's route is ``Block.route``.
+Stochastic depth is the identity at inference and is not ported.
 """
 
 from __future__ import annotations
@@ -20,7 +24,9 @@ from torch import nn
 
 from ..config import BackboneConfig
 
-from ..kernels.fused_attention import fused_attention, use_kernel
+from ..kernels import fused_attention as fa
+from ..kernels import stage1_attention as s1
+from ..kernels.fused_block import fused_block, fused_block_viable
 from ..kernels.mixffn import mixffn
 from ..ops.activations import gelu
 from .common import conv_nhwc
@@ -48,11 +54,11 @@ class SRAttention(nn.Module):
 
     def __init__(
         self, dim: int, num_heads: int, sr_ratio: int = 1, qkv_bias: bool = True,
-        ln_eps: float = 1e-6, use_kernels: bool = False,
+        ln_eps: float = 1e-6, use_kernels: bool = False, fuse_block: bool = False,
     ):
         super().__init__()
         self.dim, self.num_heads, self.sr_ratio = dim, num_heads, sr_ratio
-        self.qkv_bias, self.use_kernels = qkv_bias, use_kernels
+        self.qkv_bias, self.use_kernels, self.fuse_block = qkv_bias, use_kernels, fuse_block
         self.q = nn.Linear(dim, dim, bias=qkv_bias)
         self.kv = nn.Linear(dim, 2 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
@@ -60,29 +66,47 @@ class SRAttention(nn.Module):
             self.sr = nn.Conv2d(dim, dim, sr_ratio, stride=sr_ratio)
             self.norm = nn.LayerNorm(dim, eps=ln_eps)
 
+    def kv_input(self, x: torch.Tensor) -> torch.Tensor:
+        """The (B, M, C) tokens K and V are projected from."""
+        b, h, w, c = x.shape
+        if self.sr_ratio > 1:
+            return self.norm(conv_nhwc(self.sr, x)).reshape(b, -1, c)
+        return x.reshape(b, h * w, c)
+
+    def weights(self) -> tuple:
+        """The projections as the kernels take them: q, kv, proj (out, in)."""
+        return (self.q.weight, self.q.bias, self.kv.weight, self.kv.bias,
+                self.proj.weight, self.proj.bias)
+
+    def route(self, n_tokens: int, n_keys: int, device) -> str:
+        """Which kernel runs the attention: "stage1_attention",
+        "fused_attention" or "plain"."""
+        if s1.use_kernel(self.use_kernels, self.fuse_block, self.qkv_bias, n_tokens, self.dim,
+                         self.num_heads, n_keys, device):
+            return "stage1_attention"
+        if fa.use_kernel(self.use_kernels, self.qkv_bias, n_tokens, self.dim // self.num_heads,
+                         n_keys, device):
+            return "fused_attention"
+        return "plain"
+
     def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None):
         """x: LN'd (B, H, W, C) map; ``residual`` (same shape) is added to
         the output when given."""
         b, h, w, c = x.shape
         head_dim = self.dim // self.num_heads
         scale = head_dim**-0.5
-        if self.sr_ratio > 1:
-            kv_in = self.norm(conv_nhwc(self.sr, x)).reshape(b, -1, c)
-        else:
-            kv_in = x.reshape(b, h * w, c)
+        kv_in = self.kv_input(x)
 
-        if use_kernel(
-            self.use_kernels, self.qkv_bias, h * w, head_dim, kv_in.shape[1], x.device
-        ):
-            out = fused_attention(
-                x.reshape(b, h * w, c).contiguous(), kv_in.contiguous(),
-                self.q.weight, self.q.bias, self.kv.weight, self.kv.bias,
-                self.proj.weight, self.proj.bias, self.num_heads, scale,
-                residual=(
-                    None if residual is None
-                    else residual.reshape(b, h * w, c).contiguous()
-                ),
-            )
+        route = self.route(h * w, kv_in.shape[1], x.device)
+        if route != "plain":
+            tokens, kv_in = x.reshape(b, h * w, c).contiguous(), kv_in.contiguous()
+            res = None if residual is None else residual.reshape(b, h * w, c).contiguous()
+            if route == "stage1_attention":
+                out = s1.stage1_attention(tokens, kv_in, *self.weights(), scale, residual=res)
+            else:
+                out = fa.fused_attention(
+                    tokens, kv_in, *self.weights(), self.num_heads, scale, residual=res
+                )
             return out.reshape(b, h, w, c)
 
         q = self.q(x).reshape(b, h * w, self.num_heads, head_dim)
@@ -128,20 +152,59 @@ class MixFFN(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block: x + attn(LN(x)); x + ffn(LN(x))."""
+    """Pre-LN transformer block: x + attn(LN(x)); x + ffn(LN(x)).
+    ``fuse_block`` runs the block after LN1 as one whole-block kernel where
+    ``route`` says so (same state dict)."""
 
     def __init__(
         self, dim: int, num_heads: int, sr_ratio: int, mlp_ratio: int = 4,
         qkv_bias: bool = True, ln_eps: float = 1e-6, use_kernels: bool = False,
-        fuse_ffn: bool = False,
+        fuse_ffn: bool = False, fuse_block: bool = False,
     ):
         super().__init__()
+        self.fuse_block = fuse_block
         self.norm1 = nn.LayerNorm(dim, eps=ln_eps)
-        self.attn = SRAttention(dim, num_heads, sr_ratio, qkv_bias, ln_eps, use_kernels)
+        self.attn = SRAttention(
+            dim, num_heads, sr_ratio, qkv_bias, ln_eps, use_kernels, fuse_block
+        )
         self.norm2 = nn.LayerNorm(dim, eps=ln_eps)
         self.mlp = MixFFN(dim, dim * mlp_ratio, fuse_ffn)
 
+    def route(self, b: int, h: int, w: int, device) -> str:
+        """Which kernel runs this block on a (b, h, w, C) map on ``device``:
+        "fused_block" (its plain version on the CPU) where JAX's Block
+        would fuse it (perspectivefields_tpu/models/mit.py:456-469:
+        inference, q/kv biases, head_dim 64, ``fused_block_viable``), plus
+        the kernel's own limits; else the attention's route."""
+        attn = self.attn
+        n_keys = (h // attn.sr_ratio) * (w // attn.sr_ratio)
+        hidden = self.mlp.fc1.out_features
+        if (
+            self.fuse_block
+            and not self.training
+            and attn.qkv_bias
+            and attn.dim % attn.num_heads == 0
+            and attn.dim // attn.num_heads == fa.HEAD_DIM
+            and n_keys <= fa.MAX_KEYS
+            and hidden == 4 * attn.dim
+            and fused_block_viable(b, h * w, attn.dim, hidden, n_keys, attn.num_heads)
+        ):
+            return "fused_block"
+        return attn.route(h * w, n_keys, device)
+
     def forward(self, x):
+        b, h, w, c = x.shape
+        if self.route(b, h, w, x.device) == "fused_block":
+            ln1 = self.norm1(x)
+            attn, mlp, dw = self.attn, self.mlp, self.mlp.dwconv.dwconv
+            out = fused_block(
+                ln1.reshape(b, h * w, c).contiguous(), attn.kv_input(ln1).contiguous(),
+                x.reshape(b, h * w, c).contiguous(), *attn.weights(),
+                self.norm2.weight, self.norm2.bias, mlp.fc1.weight, mlp.fc1.bias,
+                dw.weight, dw.bias, mlp.fc2.weight, mlp.fc2.bias,
+                attn.num_heads, (c // attn.num_heads) ** -0.5, h, w, self.norm2.eps,
+            )
+            return out.reshape(b, h, w, c)
         x = x + self.attn(self.norm1(x))
         return x + self.mlp(self.norm2(x))
 
@@ -166,7 +229,7 @@ class MixViT(nn.Module):
 
     def __init__(
         self, spec: BackboneConfig = BackboneConfig(), use_kernels: bool = False,
-        fuse_ffn: bool = False,
+        fuse_ffn: bool = False, fuse_block: bool = False,
     ):
         super().__init__()
         in_ch = 3
@@ -178,6 +241,7 @@ class MixViT(nn.Module):
                 Block(
                     spec.dims[s], spec.num_heads[s], spec.sr_ratios[s],
                     spec.mlp_ratio, spec.qkv_bias, spec.ln_eps, use_kernels, fuse_ffn,
+                    fuse_block,
                 )
                 for _ in range(spec.depths[s])
             ))

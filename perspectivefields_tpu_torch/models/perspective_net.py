@@ -23,17 +23,18 @@ class PersNet(nn.Module):
     """Attribute names follow the reference state dict: ``backbone``,
     ``ll_enc``, ``persformer_heads.{gravity,latitude}_head``, ``param_net``.
 
-    ``use_kernels`` gates the attention kernel; ``fuse_ffn`` and
-    ``fuse_convnext`` run every MixFFN and every ParamNet ConvNeXt block
-    fused, as the JAX PersNet's flags of the same names do."""
+    ``use_kernels`` gates the attention kernels; ``fuse_ffn``,
+    ``fuse_convnext`` and ``fuse_block`` run every MixFFN, every ParamNet
+    ConvNeXt block and every eligible MiT block fused, as the JAX PersNet's
+    flags of the same names do."""
 
     def __init__(
         self, cfg: ModelConfig, use_kernels: bool = False, fuse_ffn: bool = False,
-        fuse_convnext: bool = False,
+        fuse_convnext: bool = False, fuse_block: bool = False,
     ):
         super().__init__()
         self.cfg = cfg
-        self.backbone = MixViT(cfg.backbone, use_kernels, fuse_ffn)
+        self.backbone = MixViT(cfg.backbone, use_kernels, fuse_ffn, fuse_block)
         self.ll_enc = LowLevelEncoder()
         heads = {}
         for field, hc in (("gravity", cfg.gravity), ("latitude", cfg.latitude)):

@@ -4,7 +4,7 @@ A custom config with MiT-b3 widths (dims 64/128/320/512, heads 1/2/5/8) at
 depth 1/1/1/1, narrow heads and the "ParamNet" branch at a 64^2 network
 input: the same random weights (the JAX init, carried across with
 ``flax_to_torch_names``) and the same uint8 images go through both, on the
-default path and with fuse_ffn + fuse_convnext.
+default path, with fuse_ffn + fuse_convnext, and with fuse_block.
 """
 
 import dataclasses
@@ -21,6 +21,7 @@ import torch
 from perspectivefields_tpu import PerspectiveFields as JaxPerspectiveFields
 from perspectivefields_tpu.checkpoint import torch_convert
 from perspectivefields_tpu.config import model_zoo as jax_model_zoo
+from perspectivefields_tpu.models import mit as jax_mit
 from perspectivefields_tpu.config import (
     BackboneConfig,
     GravityHeadConfig,
@@ -85,6 +86,13 @@ def torch_fused_model(jax_model):
     )
 
 
+@pytest.fixture(scope="module")
+def torch_block_model(jax_model):
+    return PerspectiveFields(
+        "custom", config=CFG, params=jax_model.params, device="cpu", fuse_block=True
+    )
+
+
 def _images():
     rng = np.random.default_rng(0)
     return [
@@ -132,11 +140,36 @@ def test_fused_slice_matches_jax(jax_fused_model, torch_fused_model):
         _assert_same(g, w)
 
 
-def test_fused_flags_default_off_and_keep_the_state_dict(torch_model, torch_fused_model):
+def test_fuse_block_slice_matches_jax(jax_model, torch_block_model, monkeypatch):
+    """fuse_block on both sides: JAX's Block takes its fused branch (backend
+    gate opened; its kernel wrapper runs the XLA composition off-TPU), the
+    port's every block (CFG's 64^2 input keeps all four stages under JAX's
+    gate) runs fused_block's plain version; a mixed-size batch."""
+    monkeypatch.setattr(jax_mit, "_fused_backend_ok", lambda: True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jax_block = JaxPerspectiveFields(
+            "custom", config=CFG, params=jax_model.params, fuse_block=True
+        )
+    backbone = torch_block_model.model.backbone
+    routes = [blk.route(2, 64 // 2 ** (s + 1), 64 // 2 ** (s + 1), torch.device("cpu"))
+              for s in range(1, 5) for blk in getattr(backbone, f"block{s}")]
+    assert routes == ["fused_block"] * 4
+    imgs = list(_images())
+    for g, w in zip(torch_block_model.inference_batch(imgs), jax_block.inference_batch(imgs)):
+        _assert_same(g, w)
+
+
+def test_fused_flags_default_off_and_keep_the_state_dict(
+    torch_model, torch_fused_model, torch_block_model
+):
     assert not torch_model.fuse_ffn and not torch_model.fuse_convnext
-    plain_sd, fused_sd = torch_model.model.state_dict(), torch_fused_model.model.state_dict()
-    assert list(plain_sd) == list(fused_sd)
-    assert all(torch.equal(plain_sd[k], fused_sd[k]) for k in plain_sd)
+    assert not torch_model.fuse_block and torch_block_model.fuse_block
+    plain_sd = torch_model.model.state_dict()
+    for other in (torch_fused_model, torch_block_model):
+        fused_sd = other.model.state_dict()
+        assert list(plain_sd) == list(fused_sd)
+        assert all(torch.equal(plain_sd[k], fused_sd[k]) for k in plain_sd)
 
 
 def test_model_zoo_copy_matches_jax():
@@ -267,7 +300,7 @@ def test_native_preprocess_is_bit_exact_pil():
 
 def test_port_runs_without_jax():
     """The card's machine has no JAX: import the port and chip_smoke's
-    imports, and run a tiny CPU forward with the fused flags, with jax,
+    imports, and run tiny CPU forwards with the fused flags, with jax,
     flax and the JAX package made unimportable."""
     code = (
         "import sys\n"
@@ -285,6 +318,10 @@ def test_port_runs_without_jax():
         "m = PerspectiveFields('custom', config=cfg, device='cpu', fuse_ffn=True, fuse_convnext=True)\n"
         "p = m.inference(np.zeros((40, 50, 3), np.uint8))\n"
         "assert p['pred_gravity_original'].shape == (40, 50, 2)\n"
+        "m = PerspectiveFields('custom', config=cfg, device='cpu', fuse_block=True)\n"
+        "assert m.model.backbone.block4[0].route(1, 1, 1, 'cpu') == 'fused_block'\n"
+        "p = m.inference(np.zeros((40, 50, 3), np.uint8))\n"
+        "assert np.isfinite(p['pred_gravity_original']).all()\n"
         "loaded = [k for k in sys.modules if sys.modules[k] is not None]\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'flax')) for k in loaded)\n"
         "assert not any(k.split('.')[0] == 'perspectivefields_tpu' for k in loaded)\n"

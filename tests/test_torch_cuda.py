@@ -9,10 +9,12 @@ import torch
 
 from perspectivefields_tpu_torch.kernels import convnext_block as cb
 from perspectivefields_tpu_torch.kernels import fused_attention as fa
+from perspectivefields_tpu_torch.kernels import fused_block as fb
 from perspectivefields_tpu_torch.kernels import mixffn as mf
+from perspectivefields_tpu_torch.kernels import stage1_attention as s1
 from perspectivefields_tpu_torch.models.common import init_random_
 from perspectivefields_tpu_torch.models.convnext import ConvNeXtBlock
-from perspectivefields_tpu_torch.models.mit import MixFFN, SRAttention
+from perspectivefields_tpu_torch.models.mit import Block, MixFFN, SRAttention
 
 
 @pytest.fixture
@@ -161,3 +163,93 @@ def test_fused_kernels_refuse_instead_of_falling_back(cuda_device):
     cnx = _cnx_args(1, 4, 4, 64, torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         cb.convnext_block(*cnx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_residual", [False, True], ids=["plain", "residual"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,n,m", [(8, 6400, 100), (3, 999, 37)])
+def test_stage1_kernel_matches_plain_version(cuda_device, b, n, m, dtype, with_residual):
+    args = _args(b, n, m, 64, dtype)
+    res = _args(b, n, m, 64, dtype, seed=1)[0] if with_residual else None
+    before = s1.LAUNCHES
+    got = s1.stage1_attention(*args, 0.125, residual=res)
+    torch.cuda.synchronize()
+    assert s1.LAUNCHES == before + 1
+    want = s1.stage1_attention_reference(
+        *[a.float() for a in args], 0.125, residual=None if res is None else res.float()
+    )
+    _assert_kernel_close(got, want, dtype)
+
+
+def _block_args(b, h, w, c, m, dtype, seed=0):
+    """ln1x, kv_in, res and the block's weights, scaled as in
+    tests/test_fused_block.py; torch layouts."""
+    rng = np.random.default_rng(seed)
+    n, hid = h * w, 4 * c
+    shapes = [((b, n, c), 0.5), ((b, m, c), 0.5), ((b, n, c), 0.5),
+              ((c, c), 0.05), ((c,), 0.05), ((2 * c, c), 0.05), ((2 * c,), 0.05),
+              ((c, c), 0.05), ((c,), 0.05), ((c,), 0.1), ((c,), 0.05),
+              ((hid, c), 0.05), ((hid,), 0.05), ((hid, 1, 3, 3), 0.05), ((hid,), 0.05),
+              ((c, hid), 0.05), ((c,), 0.05)]
+    args = [_randn(rng, *s, scale=k, dtype=dtype) for s, k in shapes]
+    args[9] = args[9] + 1.0  # LayerNorm scale near 1
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,h,w,c,heads,m", [(8, 20, 20, 320, 5, 100), (8, 10, 10, 512, 8, 100), (3, 7, 5, 128, 2, 7)],
+)
+def test_fused_block_kernel_matches_plain_version(cuda_device, b, h, w, c, heads, m, dtype):
+    args = _block_args(b, h, w, c, m, dtype)
+    before = fb.LAUNCHES
+    got = fb.fused_block(*args, heads, 64**-0.5, h, w)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES == before + 1
+    want = fb.fused_block_reference(*[a.float() for a in args], heads, 64**-0.5, h, w)
+    _assert_kernel_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_block_smem_count_matches_kernel(cuda_device, dtype):
+    for c in (128, 320, 512):
+        for th, tw in [(1, 1), (2, 2), (3, 3), (5, 5), (4, 7)]:
+            assert fb.smem_bytes(dtype, c, th, tw) == fb.kernel_smem_bytes(dtype, c, th, tw)
+
+
+@pytest.mark.cuda
+def test_block_routes_match_plain_paths_in_f32(cuda_device):
+    """The stage-1 attention route and the fused block against the plain
+    modules, f32, from the same weights."""
+    x = torch.tensor(np.random.default_rng(5).normal(size=(2, 48, 48, 64)),
+                     dtype=torch.float32, device="cuda")
+    attn = {f: init_random_(SRAttention(64, 1, 8, use_kernels=True, fuse_block=f), seed=6)
+            .cuda().eval() for f in (True, False)}
+    assert attn[True].route(48 * 48, 36, x.device) == "stage1_attention"
+    before = s1.LAUNCHES
+    with torch.inference_mode():
+        torch.testing.assert_close(attn[True](x), attn[False](x), atol=1e-4, rtol=1e-4)
+    assert s1.LAUNCHES == before + 1
+
+    x = torch.tensor(np.random.default_rng(7).normal(size=(2, 20, 20, 320)),
+                     dtype=torch.float32, device="cuda")
+    blk = {f: init_random_(Block(320, 5, 2, use_kernels=True, fuse_block=f), seed=8)
+           .cuda().eval() for f in (True, False)}
+    assert blk[True].route(2, 20, 20, x.device) == "fused_block"
+    before = fb.LAUNCHES
+    with torch.inference_mode():
+        torch.testing.assert_close(blk[True](x), blk[False](x), atol=1e-4, rtol=1e-4)
+    assert fb.LAUNCHES == before + 1
+
+
+@pytest.mark.cuda
+def test_block_kernels_refuse_instead_of_falling_back(cuda_device):
+    args = _args(1, 8, 4, 128, torch.float32)
+    with pytest.raises(ValueError, match="stage1_attention"):
+        s1.stage1_attention(*args, 0.125)  # C = 128
+    blk = _block_args(1, 4, 4, 128, 200, torch.float32)
+    with pytest.raises(ValueError, match="M <= 128"):
+        fb.fused_block(*blk, 2, 0.125, 4, 4)
