@@ -203,12 +203,12 @@ class PerspectiveFields:
             if "pred_gravity" in raw:
                 group["pred_gravity_original"] = postprocess_gravity(
                     raw["pred_gravity"][sel].float(), cfg.resize, oh, ow,
-                    cfg.gravity.loss_type,
+                    cfg.gravity.loss_type, cfg.gravity.num_classes,
                 ).cpu().numpy()
             if "pred_latitude" in raw:
                 group["pred_latitude_original"] = postprocess_latitude(
                     raw["pred_latitude"][sel].float(), cfg.resize, oh, ow,
-                    cfg.latitude.loss_type,
+                    cfg.latitude.loss_type, cfg.latitude.num_classes,
                 ).cpu().numpy()
             post[(oh, ow)] = group
         host = {k: v.float().cpu().numpy() for k, v in raw.items()}

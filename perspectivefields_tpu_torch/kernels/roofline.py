@@ -72,8 +72,9 @@ def flagship(b: int = 8) -> dict[str, tuple[str, list]]:
     """Each TPU kernel: (file:line of its pallas_call, [(cost, calls per
     forward), ...]) at the flagship shapes and batch b. The decoder tail
     has no model path in the JAX package: its two calls are one per head,
-    were it wired in; stage-1 attention and the whole-block kernel count
-    the blocks they would take (stage 1; stages 3-4)."""
+    as ``chip_smoke.py``'s tail path makes them; stage-1 attention and the
+    whole-block kernel count the blocks they would take (stage 1; stages
+    3-4)."""
     return {
         "fused_attention": ("perspectivefields_tpu/kernels/fused_attention.py:286", [
             (attention_cost(b, 1600, 100, 128, 2), 4),

@@ -113,6 +113,16 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).reshape(*lead, out_h, out_w, x.shape[-1])
 
 
+def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Resize channels-last (..., H, W, C) -> (..., out_h, out_w, C) with
+    F.interpolate(mode='nearest') semantics, by index (the rows of
+    ``_nearest_matrix``)."""
+    h, w = x.shape[-3], x.shape[-2]
+    idx_h = torch.from_numpy(np.minimum((np.arange(out_h) * h) // out_h, h - 1)).to(x.device)
+    idx_w = torch.from_numpy(np.minimum((np.arange(out_w) * w) // out_w, w - 1)).to(x.device)
+    return x.index_select(-3, idx_h).index_select(-2, idx_w)
+
+
 # ---------------------------------------------------------------------------
 # Bit-exact Pillow uint8 resize (host-side, numpy)
 # ---------------------------------------------------------------------------

@@ -32,6 +32,12 @@ from perspectivefields_tpu.config import (
 from perspectivefields_tpu_torch import PerspectiveFields, checkpoint, native
 from perspectivefields_tpu_torch.config import model_zoo
 from perspectivefields_tpu_torch.ops.image import pil_resize_uint8
+from perspectivefields_tpu_torch.ops.codec import decode_bin
+from perspectivefields_tpu_torch.ops.postprocess import (
+    pf_postprocess,
+    postprocess_gravity,
+    postprocess_latitude,
+)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -47,6 +53,23 @@ CFG = ModelConfig(
 PARAM_KEYS = (
     "pred_roll", "pred_pitch", "pred_vfov", "pred_general_vfov",
     "pred_rel_cx", "pred_rel_cy", "pred_rel_focal",
+)
+# PersNet-360Cities's heads (73 / 180 classes, no ParamNet) at CFG's size
+CLS_CFG = dataclasses.replace(
+    CFG,
+    gravity=GravityHeadConfig(loss_type="classification", num_classes=73, embed_dim=32, fusion_dim=32),
+    latitude=LatitudeHeadConfig(loss_type="classification", num_classes=180, embed_dim=32,
+                                fusion_dim=32),
+    param=None, recover_rpf=False,
+)
+# the *-uncentered versions' ParamNetConvNextRegress; 32 is the least input
+# ConvNeXt's four downsamplings take
+REGRESS_CFG = dataclasses.replace(
+    CFG,
+    param=ParamNetConfig(name="ParamNetConvNextRegress",
+                         predict_params=("roll", "pitch", "general_vfov", "rel_cx", "rel_cy"),
+                         input_size=32),
+    recover_pp=True,
 )
 
 
@@ -158,6 +181,79 @@ def test_fuse_block_slice_matches_jax(jax_model, torch_block_model, monkeypatch)
     imgs = list(_images())
     for g, w in zip(torch_block_model.inference_batch(imgs), jax_block.inference_batch(imgs)):
         _assert_same(g, w)
+
+
+def _version_pair(cfg, param_head_bias=None):
+    """A JAX model of ``cfg`` from its seeded init and the port's from the
+    same weights. Regression latitude heads are shrunk as in ``jax_model``;
+    ``param_head_bias`` sets ParamNet's last layer to a small kernel and
+    that bias, so the general vFoV sits inside (0, 180) degrees, where the
+    focal is defined."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jm = JaxPerspectiveFields("custom", config=cfg)
+    params = jm.params["params"]
+    if cfg.latitude.loss_type == "regression":
+        head = params["latitude_head"]["linear_pred"]
+        head["kernel"] = head["kernel"] * 0.01
+    if param_head_bias is not None:
+        head = params["param_net"]["backbone"]["head"]
+        head["kernel"] = head["kernel"] * 0.1
+        head["bias"] = head["bias"] * 0 + param_head_bias
+    return jm, PerspectiveFields("custom", config=cfg, params=jm.params, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def cls_models():
+    return _version_pair(CLS_CFG)
+
+
+@pytest.fixture(scope="module")
+def regress_models():
+    return _version_pair(REGRESS_CFG, param_head_bias=0.5)
+
+
+def test_classification_version_matches_jax(cls_models):
+    """PersNet-360Cities's heads: the raw logits against JAX's, and the port's
+    decode (argmax, bin centre, resize) of JAX's own logits against JAX's
+    fields, so that an argmax near-tie cannot flip between the two."""
+    jm, tm = cls_models
+    imgs = list(_images())
+    for img, g, w in zip(imgs, tm.inference_batch(imgs), jm.inference_batch(imgs)):
+        assert set(g) == set(w)
+        assert g["pred_gravity"].shape == (64, 64, 73) and g["pred_latitude"].shape == (64, 64, 180)
+        for key in ("pred_gravity", "pred_latitude"):
+            np.testing.assert_allclose(g[key], np.asarray(w[key]), atol=5e-4, rtol=1e-4, err_msg=key)
+        oh, ow = img.shape[:2]
+        logits = {k: torch.from_numpy(np.array(w[k], np.float32))[None]
+                  for k in ("pred_gravity", "pred_latitude")}
+        grav = postprocess_gravity(logits["pred_gravity"], CLS_CFG.resize, oh, ow, "classification", 73)
+        lat = postprocess_latitude(logits["pred_latitude"], CLS_CFG.resize, oh, ow, "classification", 180)
+        # the renormalise divides by the resized field's norm, which nearly
+        # vanishes where neighbouring bins point opposite ways (1e-7 here):
+        # hold the unit vectors where that norm is at least 1e-3
+        vec = decode_bin(logits["pred_gravity"].argmax(-1), 73) * torch.tensor([ow / 64, oh / 64])
+        kept = torch.linalg.vector_norm(pf_postprocess(vec, CLS_CFG.resize, oh, ow), dim=-1)[0] >= 1e-3
+        assert kept.float().mean() > 0.99
+        np.testing.assert_allclose(grav[0][kept].numpy(), w["pred_gravity_original"][kept.numpy()],
+                                   atol=5e-4)
+        np.testing.assert_allclose(lat[0].numpy(), w["pred_latitude_original"], atol=1e-3)
+        assert g["pred_gravity_original"].shape == (oh, ow, 2)
+        assert g["pred_latitude_original"].shape == (oh, ow)
+        assert g["pred_latitude_original_mode"] == "deg"
+
+
+def test_regress_paramnet_version_matches_jax(regress_models):
+    """The *-uncentered versions' ParamNetConvNextRegress with its backfill:
+    the same key set as JAX (general vFoV and principal point, no pred_vfov,
+    no pred_rel_pp) and the same values."""
+    jm, tm = regress_models
+    assert tm.cfg.param.name == "ParamNetConvNextRegress" and tm.cfg.recover_pp
+    imgs = list(_images())
+    for g, w in zip(tm.inference_batch(imgs), jm.inference_batch(imgs)):
+        _assert_same(g, w)
+        assert "pred_vfov" not in g and "pred_rel_pp" not in g
+        assert {"pred_general_vfov", "pred_rel_cx", "pred_rel_cy", "pred_rel_focal"} <= set(g)
 
 
 def test_fused_flags_default_off_and_keep_the_state_dict(
@@ -307,6 +403,8 @@ def test_port_runs_without_jax():
         "for name in ('jax', 'flax', 'perspectivefields_tpu'): sys.modules[name] = None\n"
         "import numpy as np, warnings\n"
         "import chip_smoke\n"
+        "import perspectivefields_tpu_torch.kernels.decoder_tail\n"
+        "from perspectivefields_tpu_torch.kernels import decoder_tail\n"
         "from perspectivefields_tpu_torch.config import *\n"
         "from perspectivefields_tpu_torch import PerspectiveFields\n"
         "cfg = ModelConfig(version='custom', backbone=BackboneConfig(dims=(64, 128, 192, 256), "
@@ -322,6 +420,17 @@ def test_port_runs_without_jax():
         "assert m.model.backbone.block4[0].route(1, 1, 1, 'cpu') == 'fused_block'\n"
         "p = m.inference(np.zeros((40, 50, 3), np.uint8))\n"
         "assert np.isfinite(p['pred_gravity_original']).all()\n"
+        "import dataclasses\n"
+        "cls = dataclasses.replace(cfg, param=None, recover_rpf=False, "
+        "gravity=GravityHeadConfig(loss_type='classification', embed_dim=16, fusion_dim=16), "
+        "latitude=LatitudeHeadConfig(loss_type='classification', num_classes=180, embed_dim=16, "
+        "fusion_dim=16))\n"
+        "p = PerspectiveFields('custom', config=cls, device='cpu').inference(np.zeros((40, 50, 3), np.uint8))\n"
+        "assert p['pred_latitude'].shape == (32, 32, 180)\n"
+        "reg = dataclasses.replace(cfg, param=ParamNetConfig(input_size=32), recover_pp=True)\n"
+        "p = PerspectiveFields('custom', config=reg, device='cpu', fuse_convnext=True).inference("
+        "np.zeros((40, 50, 3), np.uint8))\n"
+        "assert np.isfinite(p['pred_rel_focal'])\n"
         "loaded = [k for k in sys.modules if sys.modules[k] is not None]\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'flax')) for k in loaded)\n"
         "assert not any(k.split('.')[0] == 'perspectivefields_tpu' for k in loaded)\n"

@@ -3,6 +3,8 @@ an NVIDIA GPU). This file imports no JAX, so it runs on a machine without
 it: ``python -m pytest tests/test_torch_cuda.py --noconftest -q`` (the
 repository's conftest imports JAX)."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -14,7 +16,11 @@ from perspectivefields_tpu_torch.kernels import mixffn as mf
 from perspectivefields_tpu_torch.kernels import stage1_attention as s1
 from perspectivefields_tpu_torch.models.common import init_random_
 from perspectivefields_tpu_torch.models.convnext import ConvNeXtBlock
+from perspectivefields_tpu_torch.models.heads import SegFormerDecoder
 from perspectivefields_tpu_torch.models.mit import Block, MixFFN, SRAttention
+
+# the package exports the function decoder_tail under its module's name
+dt = importlib.import_module("perspectivefields_tpu_torch.kernels.decoder_tail")
 
 
 @pytest.fixture
@@ -253,3 +259,82 @@ def test_block_kernels_refuse_instead_of_falling_back(cuda_device):
     blk = _block_args(1, 4, 4, 128, 200, torch.float32)
     with pytest.raises(ValueError, match="M <= 128"):
         fb.fused_block(*blk, 2, 0.125, 4, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hw,c", [(16, 96), (8, 192), (4, 384), (2, 768)])
+def test_convnext_block_kernel_at_the_regress_paramnet_shapes(cuda_device, hw, c, dtype):
+    """ParamNetConvNextRegress runs its ConvNeXt on the field nearest-resized
+    to 64^2: stages of 16^2 ... 2^2, which fuse_convnext now reaches."""
+    args = _cnx_args(4, hw, hw, c, dtype, seed=hw)
+    before = cb.LAUNCHES
+    got = cb.convnext_block(*args)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES == before + 1
+    _assert_kernel_close(got, cb.convnext_block_reference(*[a.float() for a in args]), dtype)
+
+
+def _tail_args(b, h, w, ca, cl, co, dtype, seed=0):
+    """a, ll and the tail's weights in torch layouts, at the heads' init
+    scales (1/sqrt(fan_in)) with biases of 0.1."""
+    rng = np.random.default_rng(seed)
+    shapes = [((b, h, w, ca), 1.0), ((b, h, w, cl), 1.0),
+              ((64, ca + cl, 3, 3), (9 * (ca + cl)) ** -0.5), ((64,), 0.1),
+              ((32, 64, 3, 3), (9 * 64) ** -0.5), ((32,), 0.1), ((co, 32, 1, 1), 32**-0.5),
+              ((co,), 0.1)]
+    return [_randn(rng, *s, scale=k, dtype=dtype) for s, k in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,h,w,ca,cl,co",
+    [(2, 160, 160, 256, 64, 2), (2, 160, 160, 256, 64, 73), (1, 160, 160, 256, 64, 180),
+     (2, 160, 160, 256, 64, 1), (3, 13, 9, 32, 8, 2), (3, 13, 9, 32, 8, 73)],
+)
+def test_decoder_tail_kernel_matches_plain_version(cuda_device, b, h, w, ca, cl, co, dtype):
+    args = _tail_args(b, h, w, ca, cl, co, dtype, seed=co)
+    before = dt.LAUNCHES
+    got = dt.decoder_tail(*args)
+    torch.cuda.synchronize()
+    assert dt.LAUNCHES == before + 1
+    assert got.shape == (b, 2 * h, 2 * w, co) and got.dtype == dtype
+    _assert_kernel_close(got, dt.decoder_tail_reference(*[a.float() for a in args]), dtype)
+
+
+@pytest.mark.cuda
+def test_decoder_tail_refuses_instead_of_falling_back(cuda_device):
+    args = _tail_args(1, 8, 8, 256, 64, 2, torch.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        dt.decoder_tail(*[a.half() for a in args])
+    bad = list(args)
+    bad[1] = args[1][..., :60].contiguous()  # Cl % 8 != 0
+    bad[2] = torch.zeros(64, 316, 3, 3, device="cuda")
+    with pytest.raises(ValueError, match="Cl % 8"):
+        dt.decoder_tail(*bad)
+    wide = _tail_args(1, 8, 8, 256, 64, 200, torch.float32)
+    with pytest.raises(ValueError, match="Co"):
+        dt.decoder_tail(*wide)
+
+
+@pytest.mark.cuda
+def test_fused_heads_match_plain_heads_on_the_card(cuda_device):
+    """JAX's three head rewrites against the plain dataflow, f32, cuDNN
+    with TF32 off; the tail kernel on the plain pyramid against both."""
+    rng = np.random.default_rng(9)
+    dims = (64, 128, 320, 512)
+    hl = [_randn(rng, 2, 40 // 2**i, 40 // 2**i, d) for i, d in enumerate(dims)]
+    ll = _randn(rng, 2, 80, 80, 64)
+    dec = init_random_(SegFormerDecoder("gravity", 73, dims), seed=10).cuda().eval()
+    with torch.inference_mode():
+        fused = dec(hl, ll)
+        dec.fuse_embed = dec.fuse_conv0 = dec.fuse_tail = False
+        plain = dec(hl, ll)
+        a = dec.pyramid(hl).contiguous()
+        conv0, conv1, pred = dec.conv_fuse_conv0.conv, dec.conv_fuse_conv1.conv, dec.pred
+        tail = dt.decoder_tail(a, ll, conv0.weight, conv0.bias, conv1.weight, conv1.bias,
+                               pred.weight, pred.bias)
+    assert fused.shape == plain.shape == tail.shape == (2, 160, 160, 73)
+    torch.testing.assert_close(fused, plain, atol=5e-4, rtol=5e-4)
+    torch.testing.assert_close(tail, plain, atol=1e-4, rtol=1e-4)

@@ -23,12 +23,14 @@ from perspectivefields_tpu.models import heads as jheads
 from perspectivefields_tpu.models import mit as jmit
 from perspectivefields_tpu.models import paramnet as jparamnet
 from perspectivefields_tpu.ops import activations as jact
+from perspectivefields_tpu.ops import codec as jcodec
+from perspectivefields_tpu.ops import geometry as jgeom
 from perspectivefields_tpu.ops import image as jimage
 from perspectivefields_tpu.ops import postprocess as jpost
 from perspectivefields_tpu_torch.checkpoint import load_released, state_dict_from_jax
 from perspectivefields_tpu_torch.models import convnext, heads, mit, paramnet
 from perspectivefields_tpu_torch.models.common import init_random_
-from perspectivefields_tpu_torch.ops import activations, image, postprocess
+from perspectivefields_tpu_torch.ops import activations, codec, geometry, image, postprocess
 
 # f32 on the CPU, XLA vs PyTorch kernels: summation order only
 ATOL, RTOL = 2e-5, 1e-5
@@ -135,8 +137,64 @@ def test_postprocess_matches_jax():
         # 1e-3 on degrees
         _close(postprocess.postprocess_gravity(torch.from_numpy(g), (64, 64), oh, ow), want_g, atol=5e-4)
         _close(postprocess.postprocess_latitude(torch.from_numpy(lat), (64, 64), oh, ow), want_l, atol=1e-3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        postprocess.postprocess_gravity(torch.from_numpy(g), (64, 64), 8, 8, "classification")
+    # the classification decode on the same logits (73 / 180 classes)
+    glog, llog = _randn(rng, 2, 16, 16, 73), _randn(rng, 2, 16, 16, 180)
+    want_g = jax.vmap(lambda p: jpost.postprocess_gravity(p, (16, 16), 24, 40, "classification", 73))(
+        jnp.asarray(glog))
+    want_l = jax.vmap(lambda p: jpost.postprocess_latitude(p, (16, 16), 24, 40, "classification", 180))(
+        jnp.asarray(llog))
+    _close(postprocess.postprocess_gravity(torch.from_numpy(glog), (16, 16), 24, 40, "classification", 73),
+           want_g, atol=5e-4)
+    _close(postprocess.postprocess_latitude(torch.from_numpy(llog), (16, 16), 24, 40, "classification", 180),
+           want_l, atol=1e-3)
+
+
+@pytest.mark.parametrize("hw,out_hw", [((320, 320), (64, 64)), ((32, 32), (16, 16)), ((13, 7), (5, 9))])
+def test_resize_nearest_matches_jax(hw, out_hw):
+    x = _randn(np.random.default_rng(10), 2, *hw, 3)
+    got = image.resize_nearest(torch.from_numpy(x), *out_hw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jimage.resize_nearest(jnp.asarray(x), *out_hw)))
+
+
+@pytest.mark.parametrize("num_bin", [73, 37])
+def test_codec_matches_jax(num_bin):
+    rng = np.random.default_rng(num_bin)
+    v = _randn(rng, 3, 9, 11, 2)
+    v[0, :2] = 0.0  # invalid pixels
+    bins = codec.encode_bin(torch.from_numpy(v), num_bin)
+    np.testing.assert_array_equal(bins.numpy(), np.asarray(jcodec.encode_bin(jnp.asarray(v), num_bin)))
+    assert (bins[0, :2] == num_bin - 1).all()
+    b = rng.integers(0, num_bin, size=(4, 5))
+    _close(codec.decode_bin(torch.from_numpy(b), num_bin), jcodec.decode_bin(jnp.asarray(b), num_bin),
+           atol=1e-6)
+    assert (codec.decode_bin(torch.tensor([num_bin - 1]), num_bin) == 0).all()
+
+
+@pytest.mark.parametrize("num_classes", [180, 73, 7])
+def test_latitude_codec_matches_jax(num_classes):
+    rng = np.random.default_rng(num_classes)
+    lat = rng.uniform(-90, 90, size=(4, 6, 5)).astype(np.float32)
+    lat[0, 0, :3] = (-90.0, 90.0, 0.0)
+    np.testing.assert_array_equal(
+        codec.encode_bin_latitude(torch.from_numpy(lat), num_classes).numpy(),
+        np.asarray(jcodec.encode_bin_latitude(jnp.asarray(lat), num_classes)),
+    )
+    b = np.arange(num_classes)
+    got = codec.decode_bin_latitude(torch.from_numpy(b), num_classes)
+    assert got.shape == (num_classes,)  # exactly one centre per class
+    _close(got, jcodec.decode_bin_latitude(jnp.asarray(b), num_classes), atol=1e-4)
+
+
+@pytest.mark.parametrize("degree", [True, False], ids=["degrees", "radians"])
+def test_general_vfov_to_focal_matches_jax(degree):
+    rng = np.random.default_rng(11)
+    cx, cy = rng.uniform(-0.3, 0.3, (2, 64)).astype(np.float32)
+    f = rng.uniform(0.3, 3.0, 64).astype(np.float32)
+    g = geometry.general_vfov(torch.from_numpy(cx), torch.from_numpy(cy), 1.0, torch.from_numpy(f), degree)
+    _close(g, jgeom.general_vfov(cx, cy, 1.0, f, degree), atol=1e-4, rtol=1e-5)
+    got = geometry.general_vfov_to_focal(torch.from_numpy(cx), torch.from_numpy(cy), 1.0, g, degree)
+    _close(got, jgeom.general_vfov_to_focal(cx, cy, 1.0, np.asarray(g), degree), atol=1e-5, rtol=1e-4)
+    _close(got, f, atol=1e-3, rtol=1e-3)  # the round trip
 
 
 # ------------------------------------------------------------------- MiT
@@ -196,6 +254,65 @@ def test_low_level_encoder_matches_jax():
     _close(tm(torch.from_numpy(x)), jax.jit(jm.apply)(params, jnp.asarray(x)), atol=1e-4)
 
 
+_HEAD_MODES = {
+    "none": dict(fuse_embed=False, fuse_conv0=False, fuse_tail=False),
+    "embed": dict(fuse_embed=True, fuse_conv0=False, fuse_tail=False),
+    "conv0": dict(fuse_embed=False, fuse_conv0=True, fuse_tail=False),
+    "tail": dict(fuse_embed=False, fuse_conv0=False, fuse_tail=True),
+    "all": dict(fuse_embed=True, fuse_conv0=True, fuse_tail=True),
+}
+
+
+def _head_inputs(seed, dims, hw=16):
+    rng = np.random.default_rng(seed)
+    hl = [_randn(rng, 2, hw // 2**i, hw // 2**i, d) for i, d in enumerate(dims)]
+    return hl, _randn(rng, 2, 2 * hw, 2 * hw, 64)
+
+
+@pytest.mark.parametrize("mode", list(_HEAD_MODES))
+def test_segformer_decoder_mode_matches_jax_same_mode(mode):
+    dims = (64, 128, 320, 512)
+    hl, ll = _head_inputs(12, dims)
+    flags = _HEAD_MODES[mode]
+    jm = jheads.SegFormerDecoder(3, embed_dim=32, fusion_dim=32, **flags)
+    params = _perturb(jax.jit(jm.init)(jax.random.PRNGKey(0), [jnp.asarray(h) for h in hl], jnp.asarray(ll)))
+    tm = _load(heads.SegFormerDecoder("gravity", 3, dims, embed_dim=32, fusion_dim=32, **flags),
+               params, ("gravity_head",))
+    assert (tm.fuse_embed, tm.fuse_conv0, tm.fuse_tail) == tuple(flags.values())
+    want = jax.jit(jm.apply)(params, [jnp.asarray(h) for h in hl], jnp.asarray(ll))
+    with torch.no_grad():
+        got = tm([torch.from_numpy(h) for h in hl], torch.from_numpy(ll))
+    _close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("flag", ["fuse_embed", "fuse_conv0", "fuse_tail", "all"])
+def test_port_fused_heads_match_port_plain(flag):
+    """tests/test_head_fusion.py's shapes: each rewrite (and all three)
+    against the plain dataflow of the same module, with the state dict
+    unchanged."""
+    rng = np.random.default_rng(13)
+    hl = [_randn(rng, 2, 16 // 2**i, 16 // 2**i, d) for i, d in enumerate((8, 16, 24, 32))]
+    ll = _randn(rng, 2, 32, 32, 64)
+    dec = init_random_(heads.SegFormerDecoder("latitude", 3, (8, 16, 24, 32), embed_dim=48,
+                                              fusion_dim=16), seed=3).eval()
+    with torch.no_grad():
+        for name, p in dec.named_parameters():  # nonzero biases, so the border terms show
+            if name.endswith("bias"):
+                p.add_(0.1 * torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel())))
+    keys = list(dec.state_dict())
+    args = ([torch.from_numpy(h) for h in hl], torch.from_numpy(ll))
+    with torch.no_grad():
+        for name in _HEAD_MODES["all"]:
+            setattr(dec, name, False)
+        plain = dec(*args)
+        for name in _HEAD_MODES["all"]:
+            setattr(dec, name, flag in (name, "all"))
+        fused = dec(*args)
+    assert list(dec.state_dict()) == keys
+    assert fused.shape == plain.shape == (2, 64, 64, 3)
+    _close(fused, plain, atol=5e-5, rtol=0)
+
+
 def test_segformer_decoder_matches_jax_default_fused_heads():
     rng = np.random.default_rng(7)
     dims = (64, 128, 320, 512)
@@ -236,9 +353,28 @@ def test_paramnet_head_matches_jax(recover_pp):
         _close(got[k], want[k], atol=1e-3, rtol=1e-4)  # degrees and params
 
 
-def test_paramnet_regress_variant_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        paramnet.ParamNetHead(ParamNetConfig(name="ParamNetConvNextRegress"))
+@pytest.mark.parametrize(
+    "predict_params", [("roll", "pitch", "general_vfov", "rel_cx", "rel_cy"), ("roll", "pitch", "vfov")],
+    ids=["uncentered", "centered"],
+)
+def test_paramnet_regress_variant_matches_jax(predict_params):
+    rng = np.random.default_rng(14)
+    g = _randn(rng, 2, 48, 48, 2)
+    lat = np.tanh(_randn(rng, 2, 48, 48, 1))
+    # 32 is the least input ConvNeXt's four downsamplings take (32 / 4 / 2^3 = 1)
+    cfg = ParamNetConfig(name="ParamNetConvNextRegress", predict_params=predict_params, input_size=32)
+    jm = jparamnet.ParamNetHead(cfg, recover_pp=True)
+    params, tm = _jax_pair(jm, paramnet.ParamNetHead(cfg, recover_pp=True), g, lat)
+    # keep the general vFoV inside (0, 180) degrees, where the focal is defined
+    params["params"]["backbone"]["head"]["kernel"] = params["params"]["backbone"]["head"]["kernel"] * 0.1
+    params["params"]["backbone"]["head"]["bias"] = params["params"]["backbone"]["head"]["bias"] * 0 + 0.5
+    tm = _load(tm, params)
+    want = jax.jit(jm.apply)(params, jnp.asarray(g), jnp.asarray(lat))
+    got = tm(torch.from_numpy(g), torch.from_numpy(lat))
+    assert set(got) == set(want)
+    assert "pred_rel_focal" in got and "pred_rel_pp" not in got
+    for k in want:
+        _close(got[k], want[k], atol=1e-3, rtol=1e-4)  # degrees and params
 
 
 # ------------------------------------------------------------------- weights
