@@ -7,10 +7,13 @@ Phases (each fails loudly; nothing is caught and turned into success):
   1. build the six CUDA kernels from perspectivefields_tpu_torch/csrc, one
      nvcc each, all started together; print ptxas's register/spill lines;
   2. each kernel vs its plain PyTorch version at the main path's shapes (B=8),
-     f32 and bf16, plus a ragged case; device times of the kernel, its plain
-     version and, where one exists, one PyTorch library call, each from CUDA
-     events around 30 back-to-back calls; the module paths the kernels stand
-     in for; each kernel's bound. The decoder tail takes its inputs from a
+     f32 and bf16, plus ragged cases (for the ConvNeXt-block and whole-block
+     kernels also batches of 1, 3 and 5 and maps their clusters do not
+     divide); device times of the kernel, its plain version and, where one
+     exists, one PyTorch library call, each from CUDA events around 30
+     back-to-back calls; the module paths the kernels stand in for; each
+     kernel's bound (and, for those two, each stage's share of it, L2 weight
+     bytes a call and cluster size). The decoder tail takes its inputs from a
      seeded f32 forward of the flagship (a = fusion1's upsampled output,
      ll) and the heads' own weights at Co = 2, 1 (the flagship's heads), 73
      and 180 (PersNet-360Cities's);
@@ -342,11 +345,14 @@ def attention_kernel_phase() -> dict:
     return {"max_abs_err": max_abs, **tot, "bound_ms": bound, "bound_by": by}
 
 
-def _fused_kernel_phase(name, mod, fn, ref, make_inputs, stages, cost, module_pair) -> dict:
+def _fused_kernel_phase(name, mod, fn, ref, make_inputs, stages, cost, module_pair,
+                        extra_cases=(), plan=None) -> dict:
     """Check ``fn`` (the wrapper) against ``ref`` (its plain version) at the
-    stage shapes at B=8 and a ragged case, f32 and bf16; then time both, the
-    module's fused and plain paths, and sum per forward with the bound."""
-    cases = [(8, hw, hw, c) for hw, c, _ in stages.values()] + [(3, 13, 7, 64)]
+    stage shapes at B=8 and ragged cases, f32 and bf16; then time both, the
+    module's fused and plain paths, and sum per forward with the bound.
+    ``plan(b, h, w, c)``, where given, tells each stage's cluster size and
+    L2 weight bytes a call."""
+    cases = [(8, hw, hw, c) for hw, c, _ in stages.values()] + [(3, 13, 7, 64), *extra_cases]
     max_abs, failures = 0.0, []
     for b, h, w, c in cases:
         args = make_inputs(np.random.default_rng(b * 1000 + h + w + c), b, h, w, c)
@@ -382,8 +388,13 @@ def _fused_kernel_phase(name, mod, fn, ref, make_inputs, stages, cost, module_pa
         with torch.inference_mode():
             t_mk = device_ms(lambda: mods[True](a[0]))
             t_mp = device_ms(lambda: mods[False](a[0]))
+        extra = ""
+        if plan is not None:
+            p = plan(8, hw, hw, c)
+            extra = (f", {t_b / t_k:.1%} of the bound, L2 weight bytes {p['weight_bytes'] / 1e6:.1f} MB "
+                     f"a call, cluster {p['cluster']}")
         log(f"[kernel] {name} stage {stage} bf16 B=8 {hw}x{hw} C={c}: kernel {t_k:.4f} ms, "
-            f"plain version {t_p:.4f} ms, bound {t_b:.4f} ms ({by}); module fused path "
+            f"plain version {t_p:.4f} ms, bound {t_b:.4f} ms ({by}){extra}; module fused path "
             f"{t_mk:.4f} ms, unfused path {t_mp:.4f} ms")
         for key, v in zip(tot, (t_k, t_p)):
             tot[key] += blocks * v
@@ -473,14 +484,19 @@ def _block_inputs(rng, b, h, w, c, m):
 
 
 def block_kernel_phase() -> dict:
-    """fused_block vs its plain version at stages 3-4 (B=8) and a ragged 7x5
-    grid, f32 and bf16; then bf16 times of the kernel, its plain version and
-    the unfused path it stands in for after LN1 (fused_attention with the
-    residual, LayerNorm, the unfused MixFFN, the skip). No single PyTorch
-    call computes the block."""
+    """fused_block vs its plain version at stages 3-4 (B=8), ragged grids
+    (B = 1, 3, 5; 7x5, 7x11, 13x9) and a width past MiT's (C = 192), f32 and
+    bf16; then bf16 times of the
+    kernel, its plain version and the unfused path it stands in for after
+    LN1 (fused_attention with the residual, LayerNorm, the unfused MixFFN,
+    the skip), with each stage's share of the bound, L2 weight bytes and
+    cluster size. No single PyTorch call computes the block."""
     cases = [(8, hw, hw, c, heads, 100) for hw, c, heads, _ in BLOCK_STAGES.values()]
+    # ragged maps and batches the cluster does not divide
+    cases += [(3, 7, 5, 128, 2, 7), (1, 20, 20, 320, 5, 100), (5, 7, 11, 512, 8, 100),
+              (3, 13, 9, 320, 5, 64), (2, 9, 7, 192, 3, 63)]
     max_abs, failures = 0.0, []
-    for b, h, w, c, heads, m in cases + [(3, 7, 5, 128, 2, 7)]:
+    for b, h, w, c, heads, m in cases:
         args = _block_inputs(np.random.default_rng(b * 1000 + h + w + c), b, h, w, c, m)
         for dtype in (torch.float32, torch.bfloat16):
             a = [t.to(dtype) for t in args]
@@ -519,10 +535,12 @@ def block_kernel_phase() -> dict:
             t_u = device_ms(unfused)
         costs.append((roofline.fused_block_cost(8, hw, 100, c, heads), blocks))
         t_b, by = stage_bound(costs[-1][0])
-        th, tw = fb.choose_tile(8, hw, hw, c, heads, torch.bfloat16, mf.sm_count(ln1x.device))
+        p = fb.launch_plan(8, hw, hw, c, heads, ln1x.device)
+        th, tw = p["tile"]
         log(f"[kernel] fused_block stage {stage} bf16 B=8 {hw}x{hw} C={c} heads={heads} tile "
             f"{th}x{tw}: kernel {t_k:.4f} ms, plain version {t_p:.4f} ms, bound {t_b:.4f} ms "
-            f"({by}); unfused block path after LN1 {t_u:.4f} ms")
+            f"({by}), {t_b / t_k:.1%} of the bound, L2 weight bytes {p['weight_bytes'] / 1e6:.1f} MB "
+            f"a call, cluster {p['cluster']}; unfused block path after LN1 {t_u:.4f} ms")
         for key, v in zip(tot, (t_k, t_p)):
             tot[key] += blocks * v
     bound, by = roofline.per_forward(costs)
@@ -679,6 +697,9 @@ def kernel_phase(sd, sd_cls) -> dict:
             "convnext_block", cb, cb.convnext_block, cb.convnext_block_reference, _cnx_inputs,
             CNX_STAGES, roofline.convnext_block_cost,
             lambda c, fused: ConvNeXtBlock(c, fused=fused),
+            extra_cases=[(1, 10, 10, 768), (3, 13, 9, 768), (5, 7, 11, 384), (1, 7, 7, 512),
+                         (1, 4, 4, 1024)],
+            plan=lambda b, h, w, c: cb.launch_plan(b, h, w, c, torch.device("cuda")),
         ),
         "decoder_tail": tail_kernel_phase(sd, sd_cls),
         "fused_block": block_kernel_phase(),

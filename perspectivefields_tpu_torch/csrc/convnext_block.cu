@@ -16,71 +16,75 @@
 // T is the compute dtype. Weights keep the torch layouts: the depthwise
 // kernel (C, 1, 7, 7), W1 (4C, C) and W2 (C, 4C) as nn.Linear (out, in).
 //
-// What bounds it on the H100: the CUDA-core work per element (49 taps,
-// LayerNorm, GELU on the 4x hidden map), closely followed by bytes; both
-// are small, ~8 us a call at the flagship's B=8 shapes (kernels/roofline.py).
-// Unfused, the block moves the activation through HBM about six times
-// (dwconv out, LN out, the 4x hidden map in and out of GELU, the
-// projection, layer scale, residual) in seven launches. What this design
-// does about it: a block owns NO
-// consecutive tokens (raster order) with all C channels, which the
-// LayerNorm needs. It computes the 7x7 depthwise conv (at bf16 from a copy
-// of the rows the tokens span, with their halo, in shared memory; at f32
-// straight from x), the LN in shared memory, and walks the
-// 4C hidden dimension in chunks: pwconv1, bias and GELU for the chunk,
-// then that chunk's pwconv2 partial product into the output accumulator
-// (registers at bf16). HBM sees one read of x (plus the halo rows) and one
-// write of out. Where the token tiles alone would leave SMs idle (stages
-// 2-3 of the flagship), the bf16 kernel also splits the hidden dimension
-// over blocks, which add f32 partial outputs that a second kernel sums in a
-// fixed order (each block recomputes its tile's conv and LayerNorm). The
-// wrapper picks NO, the chunk and the split (kernels/convnext_block.py:
-// choose_tokens, mixffn.choose_split). Every block reads all of W1 and W2
-// from L2, so at bf16 each weight chunk is copied into shared memory by
-// cp.async, the next one in flight while this one is used; the bf16 kernel
-// runs 16 warps to hide the latency of the per-element phases.
+// The bound on the H100: the tensor-core work of the two products
+// (~8 us a call at the flagship's B=8 shapes, kernels/roofline.py), with
+// the CUDA-core work (49 taps, LayerNorm, GELU on the 4x hidden map) and
+// the bytes close behind. Unfused, the block moves the activation through
+// HBM about six times in seven launches. The WMMA version of this kernel
+// lost to that path: each block streamed all of W1 and W2 from L2 for 32 or
+// 64 tokens (0.30 GB of L2 reads a call at C = 768), its 16x16 MMAs were
+// bound by shared-memory traffic, the f32 hidden map went through shared
+// memory, and where its tiles left SMs idle it split the hidden dimension
+// into f32 partials that made an HBM round trip to a second launch.
 //
-// bfloat16 runs both GEMMs on the tensor cores with warp-level 16x16x16
-// MMAs (WMMA), f32 accumulation. float32 runs scalar FMAs (the tensor
-// cores' f32 input is TF32, which would not match f32); its chunked
-// pwconv2 continues one FMA chain over the hidden dimension. Simple by
-// intent: no wgmma, no TMA, no warp specialisation.
+// bfloat16, this design (hopper_gemm.cuh): a block owns 64 consecutive
+// tokens of one image (wgmma's M) with all C channels, and a cluster of S
+// blocks shares each token tile (S > 1 where the tiles alone leave SMs
+// idle: C = 384 and 768 at the flagship's sizes). Its two consumer
+// warpgroups
+//   1. convolve C / S of the channels: x's rows (the tokens and their
+//      3-pixel halo) arrive by cp.async in chunks of cc channels; each
+//      thread slides a 7-tap window over up to 8 consecutive tokens of a
+//      row; one sweep sums the LayerNorm moments (the cluster's partial sums
+//      added in rank order over distributed shared memory), a second
+//      normalises (z is recomputed unless one chunk holds the block's
+//      channels) and writes y into every block of the cluster as wgmma's
+//      swizzled A operand;
+//   2. walk the block's share of the hidden chunks (s, s + S, ... of 64):
+//      pwconv1 on wgmma (m64n64, A = y from shared memory, B = the W1 tile
+//      from the ring), b1 and GELU on the accumulator in registers, rounded
+//      to bf16, which then is pwconv2's register A operand (m64n64 per 64
+//      output columns); the f32 hidden map never leaves registers;
+//   3. add the cluster's f32 partial outputs through distributed shared
+//      memory in rank order, each block finishing 64 / S of the rows (b2,
+//      gamma, the residual). No partial reaches HBM; one launch.
+// The output columns are split between the two warpgroups: each holds up to
+// 3 x 64 columns of f32 accumulators, so a block covers at most 384 columns
+// in a pass and C = 768 takes two passes (each warpgroup computes pwconv1
+// for its own register operand, so pwconv1 runs once per warpgroup and
+// pass). Wider maps take passes of 256 or 128 columns where the f32 partial
+// output of 384 would not fit beside y (C = 1024); the last pass's columns
+// past C are computed on zero weights and not stored. A
+// producer warpgroup streams the weight tiles by TMA through a ring of 16 KB
+// stages and gives its registers to the consumers (setmaxnreg: 232 each).
+// Every MMA of a ring stage is unconditional (y padded to whole 128-column
+// tiles; the W2 tiles per pass a template parameter): a conditional MMA
+// made ptxas serialise them all. kernels/convnext_block.py: plan picks S,
+// cc and the ring depth.
+//
+// What bounds it now (PERF.md): 3-5% of the bound. The weights still
+// come from L2 once per token tile and pass (118-226 MB a call), pwconv1
+// runs once per warpgroup, and at C = 96 and 192 the 800 and 200 blocks of
+// 64 tokens run in 7 and 2 waves of one block per SM. Next: a cluster that
+// multicasts the weight tiles across token tiles, as B6 does.
+//
+// float32 runs scalar FMAs (the tensor cores' f32 input is TF32, which
+// would not match f32); its chunked pwconv2 continues one FMA chain over
+// the hidden dimension, and its conv reads x straight from HBM.
 
-#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stddef.h>
 
 #include <algorithm>
 
+#include "hopper_gemm.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
-
 constexpr int kThreadsF32 = 256;       // float32 kernel: 8 warps
-constexpr int kThreadsTC = 512;        // bfloat16 kernel: 16 warps
-constexpr int kWarpsTC = kThreadsTC / 32;
-constexpr int kHC = 64;                // hidden channels per float32 chunk
+constexpr int kHC = 64;                // hidden channels per chunk
 constexpr int kMaxTokens = 64;         // tokens per block
-constexpr int kMaxOutFrags = 6;        // bf16: 16x16 output tiles per warp
-constexpr int kPad = 8;                // bf16 row padding (16 bytes)
 constexpr int kHfLd = kHC + 4;         // row of the f32 hidden chunk
 constexpr int kWsLd = 33;              // row of a staged f32 weight tile
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-__host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
 
 // GELU in f32, in the form the dtype rule picks (ops/activations.py).
 template <typename T> __device__ __forceinline__ float gelu(float x);
@@ -129,55 +133,6 @@ __device__ __forceinline__ void dwconv7(float* zs, const float* __restrict__ x,
         }
       }
       zs[o * C + c] = acc + bias;
-    }
-  }
-}
-
-// The same conv for a block of nq <= no consecutive tokens q0.. of image b,
-// reading x from shared memory: the rows the tokens and their 3-pixel halo
-// span are copied in, cc channels at a time, into xt (at least
-// ((no - 1) / W + 8) * W * cc elements). Threads (c, g) hold channel c's 49
-// taps and take tokens g, g + G, ...; taps in row-major order.
-__device__ __forceinline__ void dwconv7_staged(float* zs, bf16* xt, const bf16* __restrict__ x,
-                                               const bf16* __restrict__ dwk,
-                                               const bf16* __restrict__ dwb, int b, int q0,
-                                               int nq, int no, int H, int W, int C, int cc) {
-  const int ya = q0 / W, yb = (q0 + nq - 1) / W;
-  const int r0 = max(0, ya - 3), npix = (min(H, yb + 4) - r0) * W, vpp = cc / 8;
-  const bf16* src = x + ((size_t)b * H + r0) * W * C;
-  const int c = threadIdx.x % cc, g = threadIdx.x / cc, G = blockDim.x / cc;
-  for (int c0 = 0; c0 < C; c0 += cc) {
-    __syncthreads();  // the last channel chunk's reads of xt are done
-    for (int i = threadIdx.x; i < npix * vpp; i += blockDim.x) {
-      const int pix = i / vpp, v = i % vpp;
-      *reinterpret_cast<uint4*>(xt + pix * cc + v * 8) =
-          *reinterpret_cast<const uint4*>(src + (size_t)pix * C + c0 + v * 8);
-    }
-    __syncthreads();
-    float w[49];
-#pragma unroll
-    for (int t = 0; t < 49; ++t) w[t] = __bfloat162float(dwk[(size_t)(c0 + c) * 49 + t]);
-    const float bias = __bfloat162float(dwb[c0 + c]);
-    for (int o = g; o < no; o += G) {
-      float z = 0.f;
-      if (o < nq) {
-        const int y = (q0 + o) / W, xx = (q0 + o) % W;
-        float acc = 0.f;
-#pragma unroll
-        for (int dp = 0; dp < 7; ++dp) {
-          const int yq = y + dp - 3;
-          if (yq < 0 || yq >= H) continue;
-          const bf16* row = xt + (yq - r0) * W * cc + c;
-#pragma unroll
-          for (int dq = 0; dq < 7; ++dq) {
-            const int xq = xx + dq - 3;
-            if (xq < 0 || xq >= W) continue;
-            acc = fmaf(__bfloat162float(row[xq * cc]), w[dp * 7 + dq], acc);
-          }
-        }
-        z = acc + bias;
-      }
-      zs[o * C + c0 + c] = z;
     }
   }
 }
@@ -301,202 +256,334 @@ __global__ void __launch_bounds__(kThreadsF32)
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor-core 16x16x16 MMAs (WMMA), f32 accumulation
+// bfloat16: wgmma, a TMA weight ring, the hidden split over a cluster
 // ---------------------------------------------------------------------------
 
-// Asynchronous 16-byte copies of one weight chunk of HC hidden channels
-// into shared memory, as B operands of the MMAs: w1s[n][k] = W1[h0 + n][k]
-// (rows of C + 8) and w2s[n][k] = W2[n][h0 + k] (rows of HC + 8).
-template <int HC>
-__device__ __forceinline__ void stage_w1(bf16* w1s, const bf16* __restrict__ w1, int h0, int C) {
-  const int vpr = C / 8;
-  for (int i = threadIdx.x; i < HC * vpr; i += kThreadsTC) {
-    const int n = i / vpr, v = i % vpr;
-    __pipeline_memcpy_async(w1s + n * (C + kPad) + v * 8, w1 + (size_t)(h0 + n) * C + v * 8, 16);
+constexpr int kTok = 64;          // tokens per block: wgmma's M
+constexpr int kPassCols = 384;    // output columns per pass: 2 warpgroups x 3 x 64
+constexpr int kMaxStages = 6;     // ring stages at most
+constexpr int kRun = 8;           // conv: consecutive tokens a thread takes at once
+
+__host__ __device__ inline int conv_rows(int H, int W) {
+  const int r = (kTok - 1) / W + 8;  // the rows 64 tokens can span, and the 3-pixel halo
+  return r < H ? r : H;
+}
+
+// One block's shared memory, in bytes from its 1024-aligned base
+// (kernels/convnext_block.py: smem_bytes mirrors it): the ring, y (64 x C
+// as the swizzled A operand, zero-padded to whole 128-column tiles), one
+// room for the conv's staged rows and z chunk and then the pass's f32
+// partial output (64 x pc), the LayerNorm sums, the ring's barriers.
+struct CnxLayout {
+  size_t ring, ys, room, xt_bytes, stats, bars, end;
+  __host__ __device__ CnxLayout(int C, int H, int W, int cc, int pc, int stages) {
+    ring = 0;
+    ys = ring + (size_t)stages * kStageBytes;
+    room = ys + (size_t)kTok * round_up(C, 128) * 2;
+    xt_bytes = align128((size_t)conv_rows(H, W) * W * cc * 2);
+    const size_t conv = xt_bytes + (size_t)kTok * cc * 4;
+    const size_t red = (size_t)kTok * pc * 4;
+    stats = room + align128(conv > red ? conv : red);
+    bars = stats + 4 * kTok * 4;
+    end = bars + 2 * (size_t)stages * 8;
+  }
+  __host__ __device__ size_t bytes() const { return end + 1024; }  // + aligning the base
+};
+
+// Step 1, the consumer warpgroups: y = T(LN(dw7x7(x) + dwb) * lns + lnb)
+// for the tokens q0 .. q0 + nq of image b into ys (swizzled, rows past nq
+// zero) of every block of the cluster. Block ``rank`` of S takes the
+// channels [rank C/S, (rank + 1) C/S): x's rows are staged cc channels at
+// a time into xt by cp.async; the first sweep writes each chunk's z into
+// zc and adds its per-token sums into part (sum, sum of squares) in chunk
+// order; the blocks' parts are summed in rank order over distributed shared
+// memory into stats; the second sweep normalises (recomputing z when the
+// block's channels take more than one chunk) and writes y into every
+// block. Thread (c, g) holds channel c's 49 taps and takes the g-th of G
+// runs of consecutive tokens, up to kRun of one image row at a time
+// (out-of-image taps add zero, in row-major order); threads past G * cc
+// idle. Holds one cluster sync; the caller syncs the cluster again once y
+// is written, and the producer warpgroup matches both.
+__device__ __forceinline__ void conv_ln(bf16* ys, bf16* xt, float* zc, float* part, float* stats,
+                                        const cg::cluster_group& cluster,
+                                        const bf16* __restrict__ x, const bf16* __restrict__ dwk,
+                                        const bf16* __restrict__ dwb, const bf16* __restrict__ lns,
+                                        const bf16* __restrict__ lnb, int b, int q0, int nq, int H,
+                                        int W, int C, int cc, float eps) {
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int cb = C / S, cb0 = rank * cb;  // this block's channels
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int ya = q0 / W, yb = (q0 + nq - 1) / W;
+  const int r0 = max(0, ya - 3), npix = (min(H, yb + 4) - r0) * W, vpp = cc / 8;
+  const bf16* src = x + ((size_t)b * H + r0) * W * C;
+  const int G = kConsumerThreads / cc, c = t % cc, g = t / cc;
+  const bool active = g < G;
+  const float inv_c = 1.f / (float)C;
+  const bool one_chunk = cc == cb;
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    if (sweep == 1) {  // the cluster's parts, summed in rank order
+      consumers_sync();
+      cluster_sync();
+      if (t < 2 * kTok) {
+        float sum = 0.f;
+        for (int r = 0; r < S; ++r) sum += cluster.map_shared_rank(part, r)[t];
+        stats[t] = sum;
+      }
+      consumers_sync();
+    }
+    for (int c0 = cb0; c0 < cb0 + cb; c0 += cc) {
+      const bool stage = !(sweep == 1 && one_chunk);  // one chunk: z is still in zc
+      if (stage) {
+        consumers_sync();  // the last chunk's reads of xt and zc are done
+        for (int i = t; i < npix * vpp; i += kConsumerThreads) {
+          const int pix = i / vpp, v = i % vpp;
+          __pipeline_memcpy_async(xt + pix * cc + v * 8, src + (size_t)pix * C + c0 + v * 8, 16);
+        }
+        __pipeline_commit();
+        __pipeline_wait_prior(0);
+      }
+      consumers_sync();
+      if (active) {
+        float w[49];
+        if (stage) {
+#pragma unroll
+          for (int k = 0; k < 49; ++k) w[k] = __bfloat162float(dwk[(size_t)(c0 + c) * 49 + k]);
+        }
+        const float bias = __bfloat162float(dwb[c0 + c]);
+        const float s = __bfloat162float(lns[c0 + c]), sb = __bfloat162float(lnb[c0 + c]);
+        // runs of up to kRun consecutive tokens of one image row, so each
+        // input value is loaded once per row of taps, not once per tap
+        const int per = (kTok + G - 1) / G, o_end = min(kTok, (g + 1) * per);
+        for (int o0 = g * per; o0 < o_end;) {
+          const int y = (q0 + o0) / W, xx = (q0 + o0) % W;
+          const int n = min(min(kRun, o_end - o0), o0 < nq ? min(W - xx, nq - o0) : kRun);
+          float z[kRun];
+#pragma unroll
+          for (int j = 0; j < kRun; ++j) z[j] = 0.f;
+          if (!stage) {
+#pragma unroll
+            for (int j = 0; j < kRun; ++j)
+              if (j < n) z[j] = zc[(o0 + j) * cc + c];
+          } else if (o0 < nq) {
+#pragma unroll
+            for (int dp = 0; dp < 7; ++dp) {
+              const int yq = y + dp - 3;
+              if (yq < 0 || yq >= H) continue;
+              const bf16* row = xt + (yq - r0) * W * cc + c;
+              float v[kRun + 6];
+#pragma unroll
+              for (int i = 0; i < kRun + 6; ++i) {
+                const int xq = xx - 3 + i;
+                v[i] = i < n + 6 && xq >= 0 && xq < W ? __bfloat162float(row[xq * cc]) : 0.f;
+              }
+#pragma unroll
+              for (int j = 0; j < kRun; ++j)
+#pragma unroll
+                for (int dq = 0; dq < 7; ++dq) z[j] = fmaf(v[j + dq], w[dp * 7 + dq], z[j]);
+            }
+#pragma unroll
+            for (int j = 0; j < kRun; ++j) z[j] += bias;
+          }
+#pragma unroll
+          for (int j = 0; j < kRun; ++j) {
+            const int o = o0 + j;
+            if (j >= n) continue;
+            if (sweep == 0) {
+              zc[o * cc + c] = o < nq ? z[j] : 0.f;
+            } else {
+              float yv = 0.f;
+              if (o < nq) {
+                const float mu = stats[o] * inv_c;
+                const float r = rsqrtf(stats[kTok + o] * inv_c - mu * mu + eps);
+                yv = (z[j] - mu) * r * s + sb;
+              }
+              const bf16 yb = __float2bfloat16(yv);
+              for (int rr = 0; rr < S; ++rr)
+                cluster.map_shared_rank(ys, rr)[swz_at(kTok, o, c0 + c)] = yb;
+            }
+          }
+          o0 += n;
+        }
+      }
+      if (sweep == 0) {
+        consumers_sync();
+        for (int o = warp; o < kTok; o += kConsumerThreads / 32) {
+          float s1 = 0.f, s2 = 0.f;
+          for (int k = lane; k < cc; k += 32) {
+            const float v = zc[o * cc + k];
+            s1 += v;
+            s2 = fmaf(v, v, s2);
+          }
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) {
+            s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+            s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+          }
+          if (lane == 0) {
+            part[o] += s1;
+            part[kTok + o] += s2;
+          }
+        }
+      }
+    }
   }
 }
 
-template <int HC>
-__device__ __forceinline__ void stage_w2(bf16* w2s, const bf16* __restrict__ w2, int h0, int C) {
-  constexpr int vpr = HC / 8;
-  for (int i = threadIdx.x; i < C * vpr; i += kThreadsTC) {
-    const int n = i / vpr, v = i % vpr;
-    __pipeline_memcpy_async(w2s + n * (HC + kPad) + v * 8, w2 + (size_t)n * 4 * C + h0 + v * 8, 16);
-  }
-}
-
-// HC, the hidden channels per chunk, is 64, or 32 where two chunks of 64
-// do not fit beside the rest (C = 768).
-template <int HC>
-__global__ void __launch_bounds__(kThreadsTC)
-    convnext_block_bf16(const bf16* __restrict__ x, const bf16* __restrict__ dwk,
-                        const bf16* __restrict__ dwb, const bf16* __restrict__ lns,
-                        const bf16* __restrict__ lnb, const bf16* __restrict__ w1,
-                        const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                        const bf16* __restrict__ b2, const bf16* __restrict__ gamma,
-                        bf16* __restrict__ out, float* __restrict__ partial, int H, int W,
-                        int C, int no, int cc, float eps, int nsplit) {
-  constexpr int hf_ld = HC + 4, gs_ld = HC + kPad;
-  constexpr int ncol = HC / 16, ngrp = kWarpsTC / ncol;         // fc1 column tiles, row groups
-  constexpr int max_rows = (kMaxTokens / 16 + ngrp - 1) / ngrp;  // fc1 row tiles per warp
-  extern __shared__ __align__(128) unsigned char smem[];
-  // tokens q0 .. q0 + nq of image b (blocks stay inside one image)
-  const int hw = H * W, per_image = (hw + no - 1) / no;
-  const int b = blockIdx.x / per_image, q0 = (blockIdx.x % per_image) * no;
-  const int nq = min(no, hw - q0);
+// WST: W2 tiles (128 output rows) per hidden chunk and pass, 1 to 3, so
+// that every MMA of the walk is unconditional (ptxas then keeps them
+// pipelined).
+template <int WST>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    convnext_block_bf16(const __grid_constant__ CUtensorMap w1map,
+                        const __grid_constant__ CUtensorMap w2map, const bf16* __restrict__ x,
+                        const bf16* __restrict__ dwk, const bf16* __restrict__ dwb,
+                        const bf16* __restrict__ lns, const bf16* __restrict__ lnb,
+                        const bf16* __restrict__ b1, const bf16* __restrict__ b2,
+                        const bf16* __restrict__ gamma, bf16* __restrict__ out, int H, int W,
+                        int C, int cc, int pc, int stages, float eps) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
+  const CnxLayout L(C, H, W, cc, pc, stages);
+  Ring ring(base + L.ring, reinterpret_cast<uint64_t*>(base + L.bars), stages);
+  bf16* ys = reinterpret_cast<bf16*>(base + L.ys);
+  float* red = reinterpret_cast<float*>(base + L.room);  // the pass's partial output
+  bf16* xt = reinterpret_cast<bf16*>(base + L.room);     // before it: x's staged rows
+  float* zc = reinterpret_cast<float*>(base + L.room + L.xt_bytes);
+  float* part = reinterpret_cast<float*>(base + L.stats);  // this block's LN sums, then
+  float* stats = part + 2 * kTok;                          // the cluster's
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  // tokens q0 .. q0 + nq of image b (a tile stays inside one image)
+  const int hw = H * W, per_image = (hw + kTok - 1) / kTok, tile = blockIdx.x / S;
+  const int b = tile / per_image, q0 = (tile % per_image) * kTok, nq = min(kTok, hw - q0);
   const size_t p0 = (size_t)b * hw + q0;
-  const int hid = 4 * C, ldy = C + kPad;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // this block's share of the hidden chunks (split blockIdx.y of nsplit)
-  const int per_split = (hid / HC + nsplit - 1) / nsplit * HC;
-  const int h_begin = min(hid, (int)blockIdx.y * per_split);
-  const int h_end = min(hid, h_begin + per_split);
-  unsigned char* p = smem;
-  // z lives only until the LayerNorm; then its room holds the weight
-  // chunks, and after the last chunk the epilogue's per-warp scratch
-  const size_t w1_bytes = align128((size_t)HC * ldy * 2);
-  const size_t w_bytes = w1_bytes + align128((size_t)C * gs_ld * 2);
-  const size_t z_bytes = align128((size_t)no * C * 4), sc_bytes = (size_t)kWarpsTC * 256 * 4;
-  float* zs = reinterpret_cast<float*>(p);
-  bf16* w1s = reinterpret_cast<bf16*>(p);
-  bf16* w2s = reinterpret_cast<bf16*>(p + w1_bytes);
-  float* scratch = reinterpret_cast<float*>(p);
-  p += z_bytes > w_bytes ? (z_bytes > sc_bytes ? z_bytes : sc_bytes)
-                         : (w_bytes > sc_bytes ? w_bytes : sc_bytes);
-  bf16* ys = reinterpret_cast<bf16*>(p); p += align128((size_t)no * ldy * 2);
-  float* hf = reinterpret_cast<float*>(p); p += align128((size_t)no * hf_ld * 4);
-  bf16* gs = reinterpret_cast<bf16*>(p); p += align128((size_t)no * gs_ld * 2);
-  float* b1s = reinterpret_cast<float*>(p);
+  const int nh = 4 * C / kHC, passes = (C + pc - 1) / pc;
+  const int Cp = round_up(C, 128);
 
-  dwconv7_staged(zs, ys, x, dwk, dwb, b, q0, nq, no, H, W, C, cc);  // ys holds x's rows
+  ring.init(1);
+  if (threadIdx.x < 2 * kTok) part[threadIdx.x] = 0.f;
+  for (int i = threadIdx.x; i < kTok * (Cp - C); i += blockDim.x)  // y's zero padding
+    ys[swz_at(kTok, i / (Cp - C), C + i % (Cp - C))] = __float2bfloat16(0.f);
   __syncthreads();
-  layer_norm(ys, ldy, zs, lns, lnb, no, C, eps);
-  __syncthreads();  // z is consumed
-  if (h_begin < h_end) stage_w1<HC>(w1s, w1, h_begin, C);
-  __pipeline_commit();
 
-  // output tiles: warp w owns tiles w, w + 16, ... of (no/16) x (C/16)
-  const int oct = C / 16, n_out = (no / 16) * oct;
-  FragC acc[kMaxOutFrags];
-#pragma unroll
-  for (int f = 0; f < kMaxOutFrags; ++f) wmma::fill_fragment(acc[f], 0.f);
-
-  // pwconv1 tiles: warp w owns column tile w % ncol and row tiles
-  // w / ncol + ngrp * i. Weight chunks arrive by cp.async, two in flight:
-  // W2's chunk h during pwconv1(h), W1's chunk h + 1 during GELU and
-  // pwconv2(h).
-  const int hct = warp % ncol, rg = warp / ncol, nrt = no / 16;
-  for (int h0 = h_begin; h0 < h_end; h0 += HC) {
-    stage_w2<HC>(w2s, w2, h0, C);  // w2s is free: pwconv2(h - 1) ended with a barrier
-    __pipeline_commit();
-    for (int j = threadIdx.x; j < HC; j += kThreadsTC) b1s[j] = __bfloat162float(b1[h0 + j]);
-    __pipeline_wait_prior(1);  // this thread's copies of W1's chunk h
-    __syncthreads();           // everyone's
-    {
-      FragC hacc[max_rows];
-#pragma unroll
-      for (int i = 0; i < max_rows; ++i) wmma::fill_fragment(hacc[i], 0.f);
-      const bf16* wcol = w1s + hct * 16 * ldy;
-      for (int k = 0; k < C; k += 16) {
-        FragBCol bw;
-        wmma::load_matrix_sync(bw, wcol + k, ldy);
-#pragma unroll
-        for (int i = 0; i < max_rows; ++i) {
-          const int rt = rg + ngrp * i;
-          if (rt < nrt) {
-            FragA a;
-            wmma::load_matrix_sync(a, ys + rt * 16 * ldy + k, ldy);
-            wmma::mma_sync(hacc[i], a, bw, hacc[i]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < max_rows; ++i) {
-        const int rt = rg + ngrp * i;
-        if (rt < nrt)
-          wmma::store_matrix_sync(hf + rt * 16 * hf_ld + hct * 16, hacc[i], hf_ld,
-                                  wmma::mem_row_major);
-      }
+  if (threadIdx.x >= kConsumerThreads) {  // the producer warpgroup: weight tiles by TMA
+    producer_registers();
+    if (threadIdx.x == kConsumerThreads) {
+      prefetch_map(&w1map);
+      prefetch_map(&w2map);
     }
-    __syncthreads();  // w1s is free
-    if (h0 + HC < h_end) stage_w1<HC>(w1s, w1, h0 + HC, C);
-    __pipeline_commit();
-    for (int i = threadIdx.x; i < no * HC; i += kThreadsTC) {
-      const int o = i / HC, j = i % HC;
-      gs[o * gs_ld + j] = __float2bfloat16(gelu<bf16>(hf[o * hf_ld + j] + b1s[j]));
-    }
-    __pipeline_wait_prior(1);  // this thread's copies of W2's chunk h
-    __syncthreads();
-
-    // out += g . W2[:, h0:h0+HC]^T (w2s read as a column-major B)
-#pragma unroll
-    for (int f = 0; f < kMaxOutFrags; ++f) {
-      const int i = warp + kWarpsTC * f;
-      if (i < n_out) {
-        const int rt = i / oct, ct = i % oct;
-#pragma unroll
-        for (int kk = 0; kk < HC; kk += 16) {
-          FragA a;
-          FragBCol bw;
-          wmma::load_matrix_sync(a, gs + rt * 16 * gs_ld + kk, gs_ld);
-          wmma::load_matrix_sync(bw, w2s + ct * 16 * gs_ld + kk, gs_ld);
-          wmma::mma_sync(acc[f], a, bw, acc[f]);
-        }
+    // the first ring's worth of tiles goes out before the conv; then this
+    // warpgroup matches the conv's two cluster syncs (the LayerNorm sums, y)
+    int issued = 0;
+    auto conv_syncs = [&] {
+      if (issued >= 0) {
+        cluster_sync();
+        cluster_sync();
+        issued = -1;
       }
+    };
+    auto put = [&](const WTile& t) {
+      if (issued == stages) conv_syncs();
+      ring.produce(t, 1, 0);
+      if (issued >= 0) ++issued;
+    };
+    for (int p = 0; p < passes; ++p) {
+      for (int h = rank; h < nh; h += S) {
+        for (int k0 = 0; k0 < Cp; k0 += 128) put({&w1map, h * kHC, k0, 64, 128});
+        for (int n = 0; n < WST; ++n) put({&w2map, p * pc + n * 128, h * kHC, 128, 64});
+      }
+      conv_syncs();
+      cluster_sync();  // the cluster's partials are in shared memory
+      cluster_sync();  // and have been read
     }
-    __syncthreads();  // w2s, gs and b1s are free
+    return;
   }
 
-  float* sc = scratch + warp * 256;
-#pragma unroll
-  for (int f = 0; f < kMaxOutFrags; ++f) {
-    const int i = warp + kWarpsTC * f;
-    if (i < n_out) {
-      const int rt = i / oct, ct = i % oct;
-      wmma::store_matrix_sync(sc, acc[f], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int o = rt * 16 + e / 16, c = ct * 16 + e % 16;
-        if (o < nq) {
-          const size_t g = (p0 + o) * C + c;
-          if (nsplit == 1) {
-            const float h = (sc[e] + __bfloat162float(b2[c])) * __bfloat162float(gamma[c]);
-            out[g] = __float2bfloat16(__bfloat162float(x[g]) + h);
-          } else {  // f32 partial sum of this block's hidden chunks
-            partial[blockIdx.y * ((size_t)gridDim.x / per_image) * hw * C + g] = sc[e];
-          }
-        }
-      }
-      __syncwarp();
-    }
-  }
-}
+  consumer_registers();
+  const int wg = threadIdx.x / 128;
+  conv_ln(ys, xt, zc, part, stats, cluster, x, dwk, dwb, lns, lnb, b, q0, nq, H, W, C, cc, eps);
+  fence_async_all();  // y, written by threads of the cluster, is read by wgmma
+  cluster_sync();
 
-// out = T(x + (sum_z partial[z] + b2) * gamma) over the splits, in order.
-__global__ void __launch_bounds__(256)
-    convnext_block_reduce(const float* __restrict__ partial, const bf16* __restrict__ x,
-                          const bf16* __restrict__ b2, const bf16* __restrict__ gamma,
-                          bf16* __restrict__ out, size_t total, int C, int nsplit) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < nsplit; ++z) s += partial[z * total + i];
-    const int c = (int)(i % C);
-    const float h = (s + __bfloat162float(b2[c])) * __bfloat162float(gamma[c]);
-    out[i] = __float2bfloat16(__bfloat162float(x[i]) + h);
+  for (int p = 0; p < passes; ++p) {
+    float acc[WST][32];
+    bool first = true;  // the pass's first MMA on acc overwrites it
+    for (int h = rank; h < nh; h += S) {
+      // pwconv1: hid = y . W1[h*64 : h*64 + 64]^T, both warpgroups whole
+      float hid[32];
+      for (int k0 = 0; k0 < Cp; k0 += 128) {
+        const bf16* w = ring.wait();
+        wg_fence();
+        fence_regs(hid);
+#pragma unroll
+        for (int k = 0; k < 128; k += 16)
+          mma_n64_ss(hid, desc_at(ys, kTok, 0, k0 + k), desc_at(w, 64, 0, k), k0 + k > 0);
+        wg_commit();
+        ring.retire(1);
+      }
+      ring.drain(1);
+      fence_regs(hid);
+      // g = T(gelu(hid + b1)) in registers, then pwconv2's A operand
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        hid[i] = gelu<bf16>(hid[i] + __bfloat162float(b1[h * kHC + acc_col(i)]));
+      uint32_t a[4][4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) acc_to_a(hid, s, a[s]);
+      // pwconv2: acc[n] += g . W2[p*pc + n*128 + 64*wg + (0..63), h*64 : h*64 + 64]^T
+#pragma unroll
+      for (int n = 0; n < WST; ++n) {
+        const bf16* w = ring.wait();
+        wg_fence();
+        fence_regs(acc[n]);
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          mma_n64_rs(acc[n], a[s], desc_at(w, 128, 64 * wg, 16 * s), !first || s > 0);
+        wg_commit();
+        ring.retire(1);
+      }
+      ring.drain(1);  // the next chunk rewrites the register A operand
+      first = false;
+    }
+#pragma unroll
+    for (int n = 0; n < WST; ++n) fence_regs(acc[n]);
+    // the block's partial output into red (zero if it had no chunk); the
+    // first pass's conv room is free
+#pragma unroll
+    for (int n = 0; n < WST; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = n * 128 + 64 * wg + acc_col(i);
+        if (col < pc) red[acc_row(i) * pc + col] = first ? 0.f : acc[n][i];
+      }
+    cluster_sync();
+    // rows rank * 64/S ..: the cluster's partials summed in rank order, then
+    // out = T(x + (sum + b2) * gamma)
+    const int rows = kTok / S, r0 = rank * rows;
+    for (int i = threadIdx.x; i < rows * pc; i += kConsumerThreads) {
+      const int row = r0 + i / pc, col = i % pc;
+      float sum = 0.f;
+      for (int r = 0; r < S; ++r) sum += cluster.map_shared_rank(red, r)[row * pc + col];
+      const int c = p * pc + col;  // the last pass may run past C
+      if (row < nq && c < C) {
+        const size_t gi = (p0 + row) * C + c;
+        const float hv = (sum + __bfloat162float(b2[c])) * __bfloat162float(gamma[c]);
+        out[gi] = __float2bfloat16(__bfloat162float(x[gi]) + hv);
+      }
+    }
+    cluster_sync();  // every block has read the partials; red may be rewritten
   }
 }
 
-// Shared memory of one block; kernels/convnext_block.py:smem_bytes mirrors it.
-size_t smem_bytes(int dtype, int C, int no, int hc) {
-  if (dtype == 0)
-    return 2 * align128((size_t)no * C * 4) + align128((size_t)no * kHfLd * 4) +
-           align128(32 * kWsLd * 4) + align128(kHC * 4);
-  const size_t w = align128((size_t)hc * (C + kPad) * 2) + align128((size_t)C * (hc + kPad) * 2);
-  const size_t sc = (size_t)kWarpsTC * 256 * 4;
-  return std::max({align128((size_t)no * C * 4), w, sc}) + align128((size_t)no * (C + kPad) * 2) +
-         align128((size_t)no * (hc + 4) * 4) + align128((size_t)no * (hc + kPad) * 2) +
-         align128(kHC * 4);
+// The kernel for a pass of pc output columns (1 to 3 W2 tiles).
+inline auto bf16_kernel(int pc) {
+  return pc <= 128 ? convnext_block_bf16<1> : pc <= 256 ? convnext_block_bf16<2>
+                                                        : convnext_block_bf16<3>;
+}
+
+size_t smem_f32(int C, int no) {
+  return 2 * align128((size_t)no * C * 4) + align128((size_t)no * kHfLd * 4) +
+         align128(32 * kWsLd * 4) + align128(kHC * 4);
 }
 
 int set_smem(const void* kernel, size_t smem) {
@@ -504,61 +591,65 @@ int set_smem(const void* kernel, size_t smem) {
                                    (int)smem);
 }
 
-template <int HC>
 int launch_bf16(const void* x, const void* dwk, const void* dwb, const void* lns,
                 const void* lnb, const void* w1, const void* b1, const void* w2,
-                const void* b2, const void* gamma, void* out, void* partial, int B, int H,
-                int W, int C, int no, int cc, float eps, int nsplit, cudaStream_t st) {
-  const size_t smem = smem_bytes(1, C, no, HC);
-  int err = set_smem((const void*)convnext_block_bf16<HC>, smem);
+                const void* b2, const void* gamma, void* out, int B, int H, int W, int C,
+                int cc, int pc, int cluster, int stages, float eps, cudaStream_t st) {
+  CUtensorMap m1, m2;
+  int err = make_map(&m1, w1, 4 * C, C, 64);
   if (err != 0) return err;
-  const int blocks = B * ((H * W + no - 1) / no);
-  convnext_block_bf16<HC><<<dim3(blocks, nsplit), kThreadsTC, smem, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(dwk), static_cast<const bf16*>(dwb),
-      static_cast<const bf16*>(lns), static_cast<const bf16*>(lnb), static_cast<const bf16*>(w1),
-      static_cast<const bf16*>(b1), static_cast<const bf16*>(w2), static_cast<const bf16*>(b2),
-      static_cast<const bf16*>(gamma), static_cast<bf16*>(out), static_cast<float*>(partial),
-      H, W, C, no, cc, eps, nsplit);
-  err = (int)cudaGetLastError();
-  if (err != 0 || nsplit == 1) return err;
-  const size_t total = (size_t)B * H * W * C;
-  const int rblocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-  convnext_block_reduce<<<rblocks, 256, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<const bf16*>(x),
-      static_cast<const bf16*>(b2), static_cast<const bf16*>(gamma), static_cast<bf16*>(out),
-      total, C, nsplit);
-  return (int)cudaGetLastError();
+  err = make_map(&m2, w2, C, 4 * C, 128);
+  if (err != 0) return err;
+  const int tiles = B * ((H * W + kTok - 1) / kTok);
+  const size_t smem = CnxLayout(C, H, W, cc, pc, stages).bytes();
+  return launch_cluster(bf16_kernel(pc), dim3(tiles * cluster), kHopperThreads, smem, cluster,
+                        st, m1, m2, static_cast<const bf16*>(x), static_cast<const bf16*>(dwk),
+                        static_cast<const bf16*>(dwb), static_cast<const bf16*>(lns),
+                        static_cast<const bf16*>(lnb), static_cast<const bf16*>(b1),
+                        static_cast<const bf16*>(b2), static_cast<const bf16*>(gamma),
+                        static_cast<bf16*>(out), H, W, C, cc, pc, stages, eps);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Shared memory of one bf16 block; kernels/convnext_block.py: smem_bytes
+// mirrors it (the GPU tests hold the two equal).
+int pf_convnext_block_smem(int C, int H, int W, int cc, int pc, int stages) {
+  return (int)CnxLayout(C, H, W, cc, pc, stages).bytes();
+}
+
+// How many clusters of ``cluster`` bf16 blocks the card runs at once
+// (kernels/convnext_block.py: plan).
+int pf_convnext_block_max_clusters(int C, int H, int W, int cc, int pc, int stages, int cluster) {
+  return max_clusters(bf16_kernel(pc), kHopperThreads, CnxLayout(C, H, W, cc, pc, stages).bytes(),
+                      cluster);
+}
+
 // dtype: 0 = float32, 1 = bfloat16. Every pointer is a contiguous device
 // buffer: x and out (B, H, W, C); dwk (C, 1, 7, 7); dwb, lns, lnb, b2, gamma
-// (C); w1 (4C, C); b1 (4C); w2 (C, 4C). ``no`` (tokens per block, a multiple
-// of 16, at most 64) and ``hc`` (hidden channels per bf16 chunk, 64 or 32;
-// float32 always takes 64) come from kernels/convnext_block.py:choose_tokens,
-// which holds the bf16 accumulator count and the shared memory within this
-// file's limits, and ``cc`` (channels per copy of x's rows at bf16) from
-// kernels/convnext_block.py:stage_channels. Requires C % 32 == 0. At bf16,
-// a block's tokens stay inside one image, and nsplit > 1 splits the hidden
-// dimension over that many blocks per token tile, each adding its f32
-// partial product into partial (nsplit x B x H x W x C), which a second
-// kernel sums; float32 takes nsplit = 1.
-// Returns cudaGetLastError() after the launches (0 on success).
+// (C); w1 (4C, C); b1 (4C); w2 (C, 4C). Requires C % 32 == 0. float32 takes
+// ``no`` tokens per block (a multiple of 16, at most 64;
+// kernels/convnext_block.py:choose_tokens). bfloat16 takes 64 tokens per
+// block, ``cc`` channels per staged chunk of x's rows (a multiple of 8 that
+// divides C / cluster, at most 256), ``cluster`` blocks per token tile that
+// split the conv's channels and the hidden dimension (1, 2, 4 or 8, C a
+// multiple of 8 cluster), ``pc`` output columns per pass (a multiple of 32,
+// at most 384 and at most C) and ``stages`` ring stages (2 to 6), from
+// kernels/convnext_block.py:plan. Returns cudaGetLastError() after the
+// launch (0 on success); a launch the card refuses is an error.
 int pf_convnext_block(int dtype, const void* x, const void* dwk, const void* dwb,
                       const void* lns, const void* lnb, const void* w1, const void* b1,
-                      const void* w2, const void* b2, const void* gamma, void* out,
-                      void* partial, int B, int H, int W, int C, int no, int hc, int cc,
-                      float eps, int nsplit, void* stream) {
+                      const void* w2, const void* b2, const void* gamma, void* out, int B, int H,
+                      int W, int C, int no, int cc, int pc, int cluster, int stages, float eps,
+                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C % 32 != 0 || no % 16 != 0 || no < 16 || no > kMaxTokens || nsplit < 1 ||
-      (nsplit > 1 && (dtype != 1 || partial == nullptr)))
-    return (int)cudaErrorInvalidValue;
+  if (C % 32 != 0) return (int)cudaErrorInvalidValue;
   const int P = B * H * W;
   if (dtype == 0) {
-    const size_t smem = smem_bytes(0, C, no, kHC);
+    if (no % 16 != 0 || no < 16 || no > kMaxTokens) return (int)cudaErrorInvalidValue;
+    const size_t smem = smem_f32(C, no);
     int err = set_smem((const void*)convnext_block_f32, smem);
     if (err != 0) return err;
     convnext_block_f32<<<(P + no - 1) / no, kThreadsF32, smem, st>>>(
@@ -570,19 +661,21 @@ int pf_convnext_block(int dtype, const void* x, const void* dwk, const void* dwb
         static_cast<float*>(out), P, H, W, C, no, eps);
     return (int)cudaGetLastError();
   }
-  // the staged conv: cc divides C and the block, and the rows fit in ys
-  const int rows = min(H, (no - 1) / W + 8);
-  if (dtype != 1 || (no / 16) * (C / 16) > kWarpsTC * kMaxOutFrags || cc % 8 != 0 ||
-      C % cc != 0 || kThreadsTC % cc != 0 ||
-      (size_t)rows * W * cc > (size_t)no * (C + kPad))
+  if (dtype != 1 || (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
+      C % (8 * cluster) != 0 || cc < 8 || cc % 8 != 0 || (C / cluster) % cc != 0 ||
+      cc > kConsumerThreads || pc < 32 || pc % 32 != 0 || pc > min(C, kPassCols) ||
+      stages < 2 || stages > kMaxStages)
     return (int)cudaErrorInvalidValue;
-  if (hc == 64)
-    return launch_bf16<64>(x, dwk, dwb, lns, lnb, w1, b1, w2, b2, gamma, out, partial, B, H,
-                           W, C, no, cc, eps, nsplit, st);
-  if (hc == 32)
-    return launch_bf16<32>(x, dwk, dwb, lns, lnb, w1, b1, w2, b2, gamma, out, partial, B, H,
-                           W, C, no, cc, eps, nsplit, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_bf16(x, dwk, dwb, lns, lnb, w1, b1, w2, b2, gamma, out, B, H, W, C, cc, pc,
+                     cluster, stages, eps, st);
+}
+
+// The Hopper GEMM core alone, for the GPU tests: out (M, N) f32 = a (M, K)
+// . w (N, K)^T, bf16; mode 0 reads A from shared memory, mode 1 from
+// registers (hopper_gemm.cuh: gemm_core).
+int pf_gemm_core(const void* a, const void* w, void* out, int M, int N, int K, int mode,
+                 void* stream) {
+  return launch_gemm_core(a, w, out, M, N, K, mode, static_cast<cudaStream_t>(stream));
 }
 
 const char* pf_cuda_error_string(int err) {

@@ -8,93 +8,107 @@
 //
 //   a   = attention(ln1x, kv_in)       fused_attention.cu's function and casts
 //   x2  = T(res + a)                   first skip
-//   y   = T(LN2(x2))                   nn.LayerNorm's f32 Welford moments
+//   y   = T(LN2(x2))                   f32 moments: nn.LayerNorm's Welford order at
+//                                      f32, two passes at bf16
 //   o   = MixFFN(y)                    mixffn.cu's function and casts
 //   out = T(x2 + o)                    second skip
 //
 // T is the compute dtype. Weights keep the torch layouts: nn.Linear (out, in),
-// the depthwise kernel (4C, 1, 3, 3).
+// the depthwise kernel (4C, 1, 3, 3). Rounding points at bf16: q, p, o_h,
+// a (before the skip), x2, y, the hidden map after fc1 + b1, g after GELU,
+// fc2 + b2 (before the skip), out.
 //
 // What bounds it on the H100: at the flagship's B=8 shapes, operations
 // (~0.15 ms per forward of tensor-core work, kernels/roofline.py). Unfused,
-// the block moves every intermediate through HBM: the (B, N, C) attention
-// output, x2 and y, and the 4C-wide hidden map five times. What this design
-// does about it: a first launch projects K/V into a (B, M, 2C) scratch
-// tensor (attention_common.cuh). Then one block owns a TH x TW tile of one
-// image plus a 1-pixel halo (the 3x3 conv needs it) and keeps everything
-// on chip:
-//   1. attention on the halo'd tokens, 32 at a time (fused_attention.cu's
-//      sub-block: q projection, per head logits / softmax / P.V, out
-//      projection), x2 = res + a, and LN2 into y for every halo token; x2
-//      is kept for the tile's own tokens;
-//   2. the MixFFN on y, walking the hidden dimension in 64-channel chunks
-//      (mixffn_common.cuh: fc1, the hidden map's zero padding outside the
-//      image, the 3x3 taps, GELU, that chunk's fc2 product);
-//   3. out = x2 + o for the tile's own tokens.
-// HBM sees ln1x, res and K/V read and out written. The halo costs attention
-// and fc1 on (TH+2)(TW+2) tokens for TH*TW outputs; kernels/fused_block.py:
-// choose_tile picks the tile. Shared memory holds y and x2 for the whole
-// block, and one room that the attention phase and then the FFN phase use.
+// the block moves every intermediate through HBM. A first launch projects
+// K/V into a (B, M, 2C) scratch tensor (attention_common.cuh). Then one
+// block owns a TH x TW tile of one image plus the 1-pixel halo the 3x3 conv
+// needs, and keeps the attention output, x2, y and the 4C hidden map on
+// chip. The WMMA version of this kernel was 41-47x above the bound: every
+// block streamed all of the block's weights from L2 for 8-25 outputs (0.3 /
+// 0.63 GB of L2 reads a call at stages 3 / 4), read Wq and Wp as fragments
+// straight from global memory once per 32-row sub-tile, restaged K_h and V_h
+// per sub-tile and head, and its 16x16 MMAs were bound by shared memory.
 //
-// bfloat16 runs every product on the tensor cores with warp-level 16x16x16
-// MMAs (WMMA), f32 accumulation, 16 warps. float32 runs scalar FMAs summed
-// in cuBLAS's order (one FMA chain over k), as the attention and MixFFN
-// kernels do. Simple by intent: no wgmma, no TMA, no split of the hidden
-// dimension over blocks.
+// bfloat16, this design (hopper_gemm.cuh): the halo is at most 64 tokens
+// (wgmma's M), so a block is one sub-tile. Two consumer warpgroups split
+// the columns of every product; a producer warpgroup streams Wq, Wp, W1 and W2
+// as 16 KB tiles by TMA through a ring. The blocks of a thread-block
+// cluster (k neighbouring tiles) share that ring: each loads 1/k of every
+// tile's rows and multicasts it to all k, so L2 serves each weight tile
+// once per cluster, not once per block. The phases:
+//   1. ln1x's halo rows into shared memory (wgmma's swizzled A operand);
+//      q = T(x . Wq^T + bq) (m64n32 per warpgroup per 64 columns);
+//   2. per head, K_h and V_h^T staged once; logits on wgmma (each warpgroup
+//      64 of the 128 padded keys), the softmax in registers with the row max
+//      and sum exchanged through shared memory, p = T(.) into shared memory;
+//      o_h = T(p . V_h) (each warpgroup 32 of the 64 head columns);
+//   3. a = T(o . Wp^T + bp), x2 = T(res + a); y = T(LN2(x2)) per row, its
+//      moments in f32 in two passes (the f32 kernel keeps nn.LayerNorm's
+//      Welford order);
+//   4. the MixFFN in 64-channel hidden chunks: fc1 (each warpgroup 32
+//      channels), + b1, zero off the image, T(.) into a plain tile; the 3x3
+//      taps and GELU into g (the swizzled A operand); fc2 into f32
+//      accumulators that stay in registers across all chunks (each
+//      warpgroup 64 of every 128 output columns);
+//   5. out = T(x2 + T(o + b2)) for the tile's tokens.
+// The cluster's blocks all walk the same weight tiles, so a grid the
+// cluster does not divide is padded with blocks that take part in every
+// load and barrier and write nothing. The producer warpgroup gives its
+// registers to the consumers (setmaxnreg: 232 each); every MMA of a ring
+// stage is unconditional (xs padded to whole 128-column tiles, the W2
+// tiles a template parameter), since a conditional MMA made ptxas
+// serialise them all; a warpgroup releases a stage with one remote arrive
+// per block. kernels/fused_block.py: plan picks the tile, the cluster size
+// and the ring depth.
+//
+// What bounds it now (PERF.md; clock64 counts of one block): every
+// block runs all 10 C^2 weight MACs for 64 rows, of which 25-35 are
+// outputs and the rest halo; the FFN walk takes ~55% of a block (fc1,
+// the 3x3 taps with GELU on the CUDA cores while the tensor cores wait,
+// fc2 in short 16 KB stages), attention ~18%. At stage 4 the 32 blocks
+// leave 100 SMs idle. Next: split the hidden chunks over a cluster (as
+// B4 does) and overlap the taps with fc2.
+//
+// float32 runs scalar FMAs summed in cuBLAS's order (one FMA chain over k),
+// as the attention and MixFFN kernels do, on the WMMA version's tiling
+// (halo up to 128 tokens in 32-token sub-tiles).
 
 #include "attention_common.cuh"
+#include "hopper_gemm.cuh"
 #include "mixffn_common.cuh"
 
 namespace {
 
-constexpr int kSub = 32;  // halo tokens per attention sub-tile
+constexpr int kSub = 32;  // halo tokens per attention sub-tile (float32)
 
-// Layout of one block's shared memory (kernels/fused_block.py: smem_bytes
-// mirrors it): the persistent room (y, x2, FFN biases, index tables), then
-// one room that phase 1 (attention) and phase 2 (FFN) reuse.
+// Layout of one float32 block's shared memory (kernels/fused_block.py:
+// smem_bytes mirrors it): the persistent room (y, x2, FFN biases, index
+// tables), then one room that phase 1 (attention) and phase 2 (FFN) reuse.
 struct Layout {
   size_t ys, x2s, b1s, dwbs, tables, room;  // byte offsets
   size_t a_xs, a_qs, a_ks, a_vs, a_ps, a_ss, a_sc, a_end;  // phase 1, from room
   size_t f_w, f_hf, f_gs, f_os, f_ws, f_end;               // phase 2, from room
   __host__ __device__ Layout(int dtype, int C, int nhp, int no, int nop) {
-    const size_t isz = dtype == 0 ? 4 : 2;
-    const size_t ld = dtype == 0 ? C : C + kPad;  // row of a C-wide tile
+    const size_t ld = C;  // row of a C-wide tile (dtype 0 only)
     ys = 0;
-    x2s = ys + align128(nhp * ld * isz);
-    b1s = x2s + align128(no * ld * isz);
+    x2s = ys + align128(nhp * ld * 4);
+    b1s = x2s + align128(no * ld * 4);
     dwbs = b1s + align128(kHC * 4);
     tables = dwbs + align128(kHC * 4);
     room = tables + 2 * kMaxHalo * 4;
-    if (dtype == 0) {
-      a_xs = room;
-      a_qs = a_xs + align128(kSub * ld * 4);
-      a_ss = a_qs + align128(kSub * ld * 4);
-      a_sc = a_ss + align128(kSub * kMaxM * 4);  // the staged weight tile
-      a_end = a_sc + align128(32 * kWsLd * 4);
-      a_ks = a_vs = a_ps = a_end;  // unused at f32: K and V are staged per 32 x 32 tile
-      f_w = room;  // unused at f32
-      f_hf = room;
-      f_gs = f_hf + align128(nhp * kHfLd * 4);
-      f_os = f_gs + align128(nop * kHfLd * 4);
-      f_ws = f_os + align128(nop * ld * 4);
-      f_end = f_ws + align128(32 * kWsLd * 4);
-    } else {
-      a_xs = room;
-      a_qs = a_xs + align128(kSub * ld * 2);
-      a_ks = a_qs + align128(kSub * ld * 2);
-      a_vs = a_ks + align128(kMaxM * kHdLd * 2);
-      a_ps = a_vs + align128(kMaxM * kHdLd * 2);
-      a_ss = a_ps + align128(kSub * kPLd * 2);
-      a_sc = a_ss + align128(kSub * kSLd * 4);
-      a_end = a_sc + kWarpsTC * 256 * 4;
-      const size_t w = align128(kHC * ld * 2) + align128(C * kGsLd * 2);
-      const size_t sc = kWarpsTC * 256 * 4;  // the epilogue's scratch, over the weights
-      f_w = room;
-      f_hf = f_w + (w > sc ? w : sc);
-      f_gs = f_hf + align128(nhp * kHfLd * 4);
-      f_end = f_gs + align128(nop * kGsLd * 2);
-      f_os = f_ws = f_end;  // unused at bf16: the accumulators live in registers
-    }
+    a_xs = room;
+    a_qs = a_xs + align128(kSub * ld * 4);
+    a_ss = a_qs + align128(kSub * ld * 4);
+    a_sc = a_ss + align128(kSub * kMaxM * 4);  // the staged weight tile
+    a_end = a_sc + align128(32 * kWsLd * 4);
+    a_ks = a_vs = a_ps = a_end;  // unused at f32: K and V are staged per 32 x 32 tile
+    f_w = room;  // unused at f32
+    f_hf = room;
+    f_gs = f_hf + align128(nhp * kHfLd * 4);
+    f_os = f_gs + align128(nop * kHfLd * 4);
+    f_ws = f_os + align128(nop * ld * 4);
+    f_end = f_ws + align128(32 * kWsLd * 4);
   }
   __host__ __device__ size_t bytes() const { return a_end > f_end ? a_end : f_end; }
 };
@@ -318,198 +332,418 @@ __global__ void __launch_bounds__(kThreadsF32)
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor-core 16x16x16 MMAs (WMMA), f32 accumulation, 16 warps
+// bfloat16: wgmma, a TMA weight ring shared by the blocks of a cluster
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreadsTC)
-    block_bf16(const bf16* __restrict__ ln1x, const bf16* __restrict__ kv,
-               const bf16* __restrict__ res, const bf16* __restrict__ wq,
-               const bf16* __restrict__ bq, const bf16* __restrict__ wp,
-               const bf16* __restrict__ bp, const bf16* __restrict__ lns,
-               const bf16* __restrict__ lnb, const bf16* __restrict__ w1,
-               const bf16* __restrict__ b1, const bf16* __restrict__ dwk,
-               const bf16* __restrict__ dwb, const bf16* __restrict__ w2,
-               const bf16* __restrict__ b2, bf16* __restrict__ out, int H, int W, int M,
-               int C, int heads, int th, int tw, float scale, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Tile tl(H, W, th, tw);
-  const Layout L(1, C, tl.nhp, tl.no, tl.nop);
-  const int ldx = C + kPad;
-  bf16* ys = reinterpret_cast<bf16*>(smem + L.ys);    // nhp x ldx: y
-  bf16* x2s = reinterpret_cast<bf16*>(smem + L.x2s);  // no x ldx: x2 of the tile's tokens
-  float* b1s = reinterpret_cast<float*>(smem + L.b1s);
-  float* dwbs = reinterpret_cast<float*>(smem + L.dwbs);
-  Tables tb{reinterpret_cast<float*>(smem + L.tables),
-            reinterpret_cast<int*>(smem + L.tables + kMaxHalo * 4)};
-  const int N = H * W, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int mp = (M + 15) / 16 * 16;  // keys padded to the MMA tile
-  const size_t two_c = 2 * (size_t)C;
-  const bf16* kvb = kv + (size_t)tl.b * M * two_c;
-  const size_t tok0 = (size_t)tl.b * N;  // the image's first token
-  const int vpr = C / 8;                 // 16-byte vectors per token row
+constexpr int kRows = 64;           // halo tokens a block holds: wgmma's M
+constexpr int kKeys = 128;          // keys padded (M <= 128)
+constexpr int kHfLdB = kHC + 8;     // row of the bf16 hidden chunk
+constexpr int kMaxStagesB = 6;
+constexpr int kMaxCB = 640;         // widest C: JAX's gate admits no wider block
 
-  fill_tables(tb, tl, H, W);
+// One bf16 block's shared memory, in bytes from its 1024-aligned base
+// (kernels/fused_block.py: smem_bytes mirrors it): the ring; xs (ln1x, then
+// o, then y; zero-padded to whole 128-column tiles) and qs (q, then x2 as
+// plain rows), 64 x C each; one room for K_h (then p, once the logits have
+// read K_h) and V_h^T, which the FFN then takes for the hidden chunk and g;
+// the softmax's row exchange; the index tables; the ring's barriers.
+struct BlockLayout {
+  size_t ring, xs, qs, kv, xch, tables, bars, end;
+  __host__ __device__ BlockLayout(int C, int stages) {
+    ring = 0;
+    xs = ring + (size_t)stages * kStageBytes;
+    qs = xs + (size_t)kRows * round_up(C, 128) * 2;
+    kv = qs + (size_t)kRows * C * 2;
+    xch = kv + 2 * (size_t)kKeys * kHeadDim * 2;
+    tables = xch + 4 * kRows * 4;
+    bars = tables + 2 * kRows * 4;
+    end = bars + 2 * (size_t)stages * 8;
+  }
+  __host__ __device__ size_t bytes() const { return end + 1024; }  // + aligning the base
+};
 
-  // 1. attention, x2 and LN2 for the halo tokens, kSub at a time
-  {
-    bf16* xs = reinterpret_cast<bf16*>(smem + L.a_xs);  // kSub x ldx: ln1x, then o
-    bf16* qs = reinterpret_cast<bf16*>(smem + L.a_qs);  // kSub x ldx: q, then x2
-    bf16* ks = reinterpret_cast<bf16*>(smem + L.a_ks);  // kMaxM x kHdLd: K_h
-    bf16* vs = reinterpret_cast<bf16*>(smem + L.a_vs);  // kMaxM x kHdLd: V_h
-    bf16* ps = reinterpret_cast<bf16*>(smem + L.a_ps);  // kSub x kPLd: p
-    float* ss = reinterpret_cast<float*>(smem + L.a_ss);  // kSub x kSLd: logits
-    float* sc = reinterpret_cast<float*>(smem + L.a_sc) + warp * 256;  // this warp's scratch
-    for (int t0 = 0; t0 < tl.nhp; t0 += kSub) {
-      __syncthreads();  // the last sub-tile's LN has read qs
-      for (int i = threadIdx.x; i < kSub * vpr; i += kThreadsTC) {
-        const int r = i / vpr, v = i % vpr;
-        int pix, o;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (t0 + r < tl.nhp && halo_token(tl, t0 + r, H, W, pix, o))
-          val = reinterpret_cast<const uint4*>(ln1x + (tok0 + pix) * C)[v];
-        *reinterpret_cast<uint4*>(xs + r * ldx + v * 8) = val;
-      }
-      __syncthreads();
-
-      // q = bf16(x . Wq^T + bq)
-      for (int nt = warp; nt < C / 16; nt += kWarpsTC) {
-        FragC acc[2];
-        proj_tiles(acc, xs, ldx, wq, C, C, nt * 16);
-        for (int i = 0; i < 2; ++i)
-          for_each_acc(acc[i], sc, [&](int r, int c, float v) {
-            const int col = nt * 16 + c;
-            qs[(16 * i + r) * ldx + col] = __float2bfloat16(v + __bfloat162float(bq[col]));
-          });
-      }
-
-      for (int h = 0; h < heads; ++h) {
-        const int hc = h * kHeadDim;
-        __syncthreads();  // q is complete; the last head's P.V has read vs
-        // K_h, V_h; rows M..mp are zero so padded keys contribute nothing
-        for (int i = threadIdx.x; i < mp * (kHeadDim / 8); i += kThreadsTC) {
-          const int m = i / (kHeadDim / 8), v = i % (kHeadDim / 8);
-          uint4 kval = make_uint4(0, 0, 0, 0), vval = make_uint4(0, 0, 0, 0);
-          if (m < M) {
-            kval = reinterpret_cast<const uint4*>(kvb + m * two_c + hc)[v];
-            vval = reinterpret_cast<const uint4*>(kvb + m * two_c + C + hc)[v];
-          }
-          *reinterpret_cast<uint4*>(ks + m * kHdLd + v * 8) = kval;
-          *reinterpret_cast<uint4*>(vs + m * kHdLd + v * 8) = vval;
-        }
-        __syncthreads();
-
-        // f32 logits q_h . k_h^T (K_h read as a column-major B operand)
-        for (int j = warp; j < 2 * (mp / 16); j += kWarpsTC) {
-          const int i = j % 2, nt = j / 2;
-          FragC acc;
-          wmma::fill_fragment(acc, 0.f);
+// y = T(LN2(x2)) for one row (C <= kMaxCB) into a swizzled A operand, by one
+// warp: f32 moments in two passes over the row held in registers (the
+// mean, then the mean squared deviation).
+__device__ __forceinline__ void layer_norm_row_bf16(bf16* ys, int row, const bf16* x2,
+                                                    const bf16* __restrict__ lns,
+                                                    const bf16* __restrict__ lnb, int C,
+                                                    float eps) {
+  const int lane = threadIdx.x % 32;
+  float v[kMaxCB / 32];
+  float sum = 0.f;
 #pragma unroll
-          for (int k = 0; k < kHeadDim; k += 16) {
-            FragBCol bk;
-            wmma::load_matrix_sync(bk, ks + nt * 16 * kHdLd + k, kHdLd);
-            FragA a;
-            wmma::load_matrix_sync(a, qs + 16 * i * ldx + hc + k, ldx);
-            wmma::mma_sync(acc, a, bk, acc);
-          }
-          wmma::store_matrix_sync(ss + 16 * i * kSLd + nt * 16, acc, kSLd, wmma::mem_row_major);
-        }
-        __syncthreads();
-        softmax_rows_bf16(ss, ps, kSub, M, mp, scale);
-        __syncthreads();
+  for (int j = 0; j < kMaxCB / 32; ++j) {
+    const int c = lane + 32 * j;
+    v[j] = c < C ? __bfloat162float(x2[c]) : 0.f;
+    sum += v[j];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  const float mean = sum / (float)C;
+  float sq = 0.f;
+#pragma unroll
+  for (int j = 0; j < kMaxCB / 32; ++j) {
+    const float d = lane + 32 * j < C ? v[j] - mean : 0.f;
+    sq = fmaf(d, d, sq);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+  const float rstd = rsqrtf(sq / (float)C + eps);
+#pragma unroll
+  for (int j = 0; j < kMaxCB / 32; ++j) {
+    const int c = lane + 32 * j;
+    if (c < C)
+      ys[swz_at(kRows, row, c)] =
+          __float2bfloat16(to_f(lns[c]) * (rstd * (v[j] - mean)) + to_f(lnb[c]));
+  }
+}
 
-        // o_h = bf16(p . v_h) into this head's columns of xs: 2 x 4 tiles
-        if (warp < 8) {
-          const int i = warp / 4, d0 = (warp % 4) * 16;
-          FragC acc;
-          wmma::fill_fragment(acc, 0.f);
-          for (int k = 0; k < mp; k += 16) {
-            FragBRow bv;
-            wmma::load_matrix_sync(bv, vs + k * kHdLd + d0, kHdLd);
-            FragA a;
-            wmma::load_matrix_sync(a, ps + 16 * i * kPLd + k, kPLd);
-            wmma::mma_sync(acc, a, bv, acc);
-          }
-          for_each_acc(acc, sc, [&](int r, int c, float v) {
-            xs[(16 * i + r) * ldx + hc + d0 + c] = __float2bfloat16(v);
-          });
-        }
+// acc (m64n32 per warpgroup) = A (64 x Kp, swizzled, from shared memory) .
+// W[n0 + 32 wg + (0..31), 0:Kp]^T, W's tiles arriving through the ring as
+// 64 rows x 128 columns (Kp a multiple of 128; A's padding and W's columns
+// past its edge are zero).
+__device__ __forceinline__ void ring_gemm_n32(float (&d)[16], const bf16* a, int Kp, Ring& ring,
+                                              int cluster) {
+  const int wg = threadIdx.x / 128;
+  for (int k0 = 0; k0 < Kp; k0 += 128) {
+    const bf16* w = ring.wait();
+    wg_fence();
+    fence_regs(d);
+#pragma unroll
+    for (int k = 0; k < 128; k += 16)
+      mma_n32_ss(d, desc_at(a, kRows, 0, k0 + k), desc_at(w, 64, 32 * wg, k), k0 + k > 0);
+    wg_commit();
+    ring.retire(cluster);
+  }
+  ring.drain(cluster);
+  fence_regs(d);
+}
+
+// NT: 128-row W2 tiles (C <= 128 NT, so NT = ceil(C / 128)), so that every
+// MMA is unconditional (ptxas then keeps them pipelined).
+template <int NT>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    block_bf16(const __grid_constant__ CUtensorMap wqmap, const __grid_constant__ CUtensorMap wpmap,
+               const __grid_constant__ CUtensorMap w1map, const __grid_constant__ CUtensorMap w2map,
+               const bf16* __restrict__ ln1x, const bf16* __restrict__ kv,
+               const bf16* __restrict__ res, const bf16* __restrict__ bq,
+               const bf16* __restrict__ bp, const bf16* __restrict__ lns,
+               const bf16* __restrict__ lnb, const bf16* __restrict__ b1,
+               const bf16* __restrict__ dwk, const bf16* __restrict__ dwb,
+               const bf16* __restrict__ b2, bf16* __restrict__ out, int B, int H, int W, int M,
+               int C, int heads, int th, int tw, int stages, float scale, float eps) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + (1024 - smem_u32(smem_raw) % 1024) % 1024;
+  const BlockLayout L(C, stages);
+  Ring ring(base + L.ring, reinterpret_cast<uint64_t*>(base + L.bars), stages);
+  bf16* xs = reinterpret_cast<bf16*>(base + L.xs);   // ln1x, then o, then y (swizzled)
+  bf16* qs = reinterpret_cast<bf16*>(base + L.qs);   // q (swizzled), then x2 (rows of C)
+  bf16* ks = reinterpret_cast<bf16*>(base + L.kv);   // K_h: 128 keys x 64 (swizzled)
+  bf16* vt = ks + kKeys * kHeadDim;                  // V_h^T: 64 x 128 keys (swizzled)
+  bf16* hf = reinterpret_cast<bf16*>(base + L.kv);   // FFN: the hidden chunk, 64 x kHfLdB
+  bf16* gs = hf + kRows * kHfLdB;                    // FFN: g, 64 x 64 (swizzled)
+  bf16* ps = ks;                                     // p: 64 x 128 keys (swizzled)
+  float* xmax = reinterpret_cast<float*>(base + L.xch);  // [2][64] row max per warpgroup
+  float* xsum = xmax + 2 * kRows;                        // [2][64] row sums
+  float* valid = reinterpret_cast<float*>(base + L.tables);
+  int* obase = reinterpret_cast<int*>(base + L.tables + kRows * 4);
+  const int cluster = (int)cg::this_cluster().num_blocks();
+  const int rank = (int)cg::this_cluster().block_rank();
+
+  // the tile: blocks past the last tile (the grid padded to the cluster)
+  // redo the last one and write nothing
+  const int tiles_w = (W + tw - 1) / tw, per_image = ((H + th - 1) / th) * tiles_w;
+  const bool real = (int)blockIdx.x < B * per_image;
+  const int bi = real ? (int)blockIdx.x : B * per_image - 1;
+  const int b = bi / per_image, ti = bi % per_image;
+  const int y0 = (ti / tiles_w) * th, x0 = (ti % tiles_w) * tw, hw = tw + 2;
+  const int nhalo = (th + 2) * hw, no = th * tw, N = H * W;
+  const size_t tok0 = (size_t)b * N;
+  const bf16* kvb = kv + (size_t)b * M * 2 * C;
+  const int Cp = round_up(C, 128);
+
+  ring.init(cluster);
+  for (int t = threadIdx.x; t < kRows; t += blockDim.x) {
+    const int yy = y0 - 1 + t / hw, xx = x0 - 1 + t % hw;
+    valid[t] = t < nhalo && yy >= 0 && yy < H && xx >= 0 && xx < W ? 1.f : 0.f;
+    obase[t] = (t / tw) * hw + t % tw;  // output t's top-left tap (t < no)
+  }
+  for (int i = threadIdx.x; i < kRows * (Cp - C); i += blockDim.x)  // xs's zero padding
+    xs[swz_at(kRows, i / (Cp - C), C + i % (Cp - C))] = __float2bfloat16(0.f);
+  __syncthreads();
+  cluster_sync();  // every block's barriers are initialised before any multicast
+
+  if (threadIdx.x >= kConsumerThreads) {  // the producer warpgroup: weight tiles by TMA
+    producer_registers();
+    if (threadIdx.x == kConsumerThreads) {
+      prefetch_map(&wqmap);
+      prefetch_map(&wpmap);
+      prefetch_map(&w1map);
+      prefetch_map(&w2map);
+    }
+    for (int which = 0; which < 2; ++which)
+      for (int n0 = 0; n0 < C; n0 += 64)
+        for (int k0 = 0; k0 < Cp; k0 += 128)
+          ring.produce({which == 0 ? &wqmap : &wpmap, n0, k0, 64, 128}, cluster, rank);
+    for (int h0 = 0; h0 < 4 * C; h0 += kHC) {
+      for (int k0 = 0; k0 < Cp; k0 += 128) ring.produce({&w1map, h0, k0, 64, 128}, cluster, rank);
+      for (int n0 = 0; n0 < C; n0 += 128) ring.produce({&w2map, n0, h0, 128, 64}, cluster, rank);
+    }
+    __syncwarp();
+    cluster_sync();  // no block leaves while others may still write into it
+    return;
+  }
+
+  consumer_registers();
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  auto pixel = [&](int t) { return (y0 - 1 + t / hw) * W + (x0 - 1 + t % hw); };
+
+  // 1. ln1x's halo rows (zero off the image), then q = T(x . Wq^T + bq)
+  for (int i = threadIdx.x; i < kRows * (C / 8); i += kConsumerThreads) {
+    const int t = i / (C / 8), v = i % (C / 8);
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (valid[t] != 0.f) val = reinterpret_cast<const uint4*>(ln1x + (tok0 + pixel(t)) * C)[v];
+    *reinterpret_cast<uint4*>(xs + swz_at(kRows, t, v * 8)) = val;  // 8 values share a chunk
+  }
+  fence_async_smem();
+  consumers_sync();
+  for (int n0 = 0; n0 < C; n0 += 64) {
+    float d[16];
+    ring_gemm_n32(d, xs, Cp, ring, cluster);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int col = n0 + 32 * wg + acc_col(i);
+      qs[swz_at(kRows, acc_row(i), col)] = __float2bfloat16(d[i] + __bfloat162float(bq[col]));
+    }
+  }
+
+  // 2. attention, head by head; o_h into xs (ln1x is no longer read)
+  for (int h = 0; h < heads; ++h) {
+    const int hc = h * kHeadDim;
+    consumers_sync();  // q is complete; the last head's P.V has read p (in ks) and vt
+    for (int i = threadIdx.x; i < kKeys * (kHeadDim / 8); i += kConsumerThreads) {
+      const int m = i / (kHeadDim / 8), v = i % (kHeadDim / 8);
+      uint4 kval = make_uint4(0, 0, 0, 0), vval = make_uint4(0, 0, 0, 0);
+      if (m < M) {
+        kval = reinterpret_cast<const uint4*>(kvb + (size_t)m * 2 * C + hc)[v];
+        vval = reinterpret_cast<const uint4*>(kvb + (size_t)m * 2 * C + C + hc)[v];
       }
-      __syncthreads();  // o is complete; q is no longer read
+      *reinterpret_cast<uint4*>(ks + swz_at(kKeys, m, v * 8)) = kval;
+      const bf16* ve = reinterpret_cast<const bf16*>(&vval);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) vt[swz_at(kHeadDim, v * 8 + e, m)] = ve[e];
+    }
+    fence_async_smem();
+    consumers_sync();
 
-      // a = bf16(o . Wp^T + bp); x2 = bf16(res + a) into qs
-      for (int nt = warp; nt < C / 16; nt += kWarpsTC) {
-        FragC acc[2];
-        proj_tiles(acc, xs, ldx, wp, C, C, nt * 16);
-        for (int i = 0; i < 2; ++i)
-          for_each_acc(acc[i], sc, [&](int r, int c, float v) {
-            const int row = 16 * i + r, col = nt * 16 + c;
-            int pix, o;
-            float x2 = 0.f;
-            if (t0 + row < tl.nhp && halo_token(tl, t0 + row, H, W, pix, o))
-              x2 = __bfloat162float(res[(tok0 + pix) * C + col]) +
-                   rnd(v + __bfloat162float(bp[col]));
-            qs[row * ldx + col] = __float2bfloat16(x2);
-          });
+    // logits of this warpgroup's 64 keys: q_h . K_h[64 wg ..]^T
+    float s[32];
+    wg_fence();
+    fence_regs(s);
+#pragma unroll
+    for (int k = 0; k < kHeadDim; k += 16)
+      mma_n64_ss(s, desc_at(qs, kRows, 0, hc + k), desc_at(ks, kKeys, 64 * wg, k), k > 0);
+    wg_commit();
+    wg_wait0();
+    fence_regs(s);
+    // p = T(softmax(s * scale)) over all M keys: row max and sum over the
+    // thread's quad, then across the two warpgroups through shared memory;
+    // p overwrites K_h, which both warpgroups' logits have read by the
+    // first exchange
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int key = 64 * wg + acc_col(i);
+      s[i] = key < M ? s[i] * scale : -INFINITY;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+    const int row0 = acc_row(0), row1 = acc_row(2);
+    if (lane % 4 == 0) {
+      xmax[wg * kRows + row0] = mx[0];
+      xmax[wg * kRows + row1] = mx[1];
+    }
+    consumers_sync();
+    mx[0] = fmaxf(xmax[row0], xmax[kRows + row0]);
+    mx[1] = fmaxf(xmax[row1], xmax[kRows + row1]);
+    float sm[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = expf(s[i] - mx[(i >> 1) & 1]);  // masked keys: exp(-inf) = 0
+      sm[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sm[r] += __shfl_xor_sync(0xffffffffu, sm[r], 1);
+      sm[r] += __shfl_xor_sync(0xffffffffu, sm[r], 2);
+    }
+    if (lane % 4 == 0) {
+      xsum[wg * kRows + row0] = sm[0];
+      xsum[wg * kRows + row1] = sm[1];
+    }
+    consumers_sync();
+    sm[0] = xsum[row0] + xsum[kRows + row0];
+    sm[1] = xsum[row1] + xsum[kRows + row1];
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      ps[swz_at(kRows, acc_row(i), 64 * wg + acc_col(i))] = __float2bfloat16(s[i] / sm[(i >> 1) & 1]);
+    fence_async_smem();
+    consumers_sync();
+
+    // o_h[:, 32 wg ..] = T(p . V_h[:, 32 wg ..])
+    float o[16];
+    wg_fence();
+    fence_regs(o);
+#pragma unroll
+    for (int k = 0; k < kKeys; k += 16)
+      mma_n32_ss(o, desc_at(ps, kRows, 0, k), desc_at(vt, kHeadDim, 32 * wg, k), k > 0);
+    wg_commit();
+    wg_wait0();
+    fence_regs(o);
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      xs[swz_at(kRows, acc_row(i), hc + 32 * wg + acc_col(i))] = __float2bfloat16(o[i]);
+  }
+  fence_async_smem();
+  consumers_sync();  // o is complete; q is no longer read
+
+  // 3. a = T(o . Wp^T + bp); x2 = T(res + a) into qs as plain rows
+  for (int n0 = 0; n0 < C; n0 += 64) {
+    float d[16];
+    ring_gemm_n32(d, xs, Cp, ring, cluster);
+#pragma unroll
+    for (int i = 0; i < 16; i += 2) {  // columns col, col + 1
+      const int t = acc_row(i), col = n0 + 32 * wg + acc_col(i);
+      float2 x2 = make_float2(0.f, 0.f);
+      if (valid[t] != 0.f) {
+        const float2 r = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(res + (tok0 + pixel(t)) * C + col));
+        const float2 bias = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bp + col));
+        x2 = make_float2(r.x + rnd(d[i] + bias.x), r.y + rnd(d[i + 1] + bias.y));
       }
-      __syncthreads();
+      *reinterpret_cast<__nv_bfloat162*>(qs + t * C + col) = __floats2bfloat162_rn(x2.x, x2.y);
+    }
+  }
+  consumers_sync();  // x2 is complete; o is no longer read
+  for (int t = warp; t < kRows; t += kConsumerThreads / 32) {
+    if (valid[t] != 0.f) {
+      layer_norm_row_bf16(xs, t, qs + t * C, lns, lnb, C, eps);
+    } else {
+      for (int c = lane; c < C; c += 32) xs[swz_at(kRows, t, c)] = __float2bfloat16(0.f);
+    }
+  }
+  fence_async_smem();
+  consumers_sync();
 
-      // y = LN2(x2), one warp per token; keep x2 of the tile's own tokens
-      for (int r = warp; r < kSub && t0 + r < tl.nhp; r += kWarpsTC) {
-        int pix, o;
-        const int t = t0 + r;
-        bf16* y = ys + (size_t)t * ldx;
-        if (halo_token(tl, t, H, W, pix, o)) {
-          layer_norm_row(y, qs + r * ldx, lns, lnb, C, eps);
-          if (o >= 0)
-            for (int c = lane; c < C; c += 32) x2s[o * ldx + c] = qs[r * ldx + c];
-        } else {
-          for (int c = lane; c < C; c += 32) y[c] = __float2bfloat16(0.f);
+  // 4. the MixFFN on y, 64 hidden channels at a time
+  float acc[NT][32];
+  // each chunk's b1 (this thread's fc1 columns), 3x3 taps and conv bias (its
+  // conv channel jc), loaded a chunk ahead so their latency hides behind fc2
+  const int jc = threadIdx.x % kHC;
+  float b1v[16], taps[9], dbias;
+  auto load_chunk = [&](int h) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) b1v[i] = __bfloat162float(b1[h + 32 * wg + acc_col(i)]);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) taps[k] = __bfloat162float(dwk[(size_t)(h + jc) * 9 + k]);
+    dbias = __bfloat162float(dwb[h + jc]);
+  };
+  load_chunk(0);
+  for (int h0 = 0; h0 < 4 * C; h0 += kHC) {
+    {  // fc1 for this warpgroup's 32 channels; + b1, zero off the image, T(.)
+      float d[16];
+      ring_gemm_n32(d, xs, Cp, ring, cluster);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int t = acc_row(i), j = 32 * wg + acc_col(i);
+        hf[t * kHfLdB + j] = __float2bfloat16(valid[t] != 0.f ? d[i] + b1v[i] : 0.f);
+      }
+    }
+    consumers_sync();
+    {  // g = T(gelu(dw3x3(hidden) + dwb)) for the tile's outputs; g's rows
+       // past no feed only output rows that are never stored
+      const int j = jc;
+      const float bias = dbias;
+#pragma unroll 4
+      for (int o = threadIdx.x / kHC; o < no; o += kConsumerThreads / kHC) {
+        const bf16* hp = hf + obase[o] * kHfLdB + j;
+        float a = 0.f;
+#pragma unroll
+        for (int dp = 0; dp < 3; ++dp)
+#pragma unroll
+          for (int dq = 0; dq < 3; ++dq)
+            a = fmaf(__bfloat162float(hp[(dp * hw + dq) * kHfLdB]), taps[dp * 3 + dq], a);
+        gs[swz_at(kRows, o, j)] = __float2bfloat16(gelu<bf16>(a + bias));
+      }
+      if (h0 + kHC < 4 * C) load_chunk(h0 + kHC);
+    }
+    fence_async_smem();
+    consumers_sync();
+    // fc2: acc[jt] += g . W2[128 jt + 64 wg + (0..63), h0 : h0 + 64]^T
+#pragma unroll
+    for (int jt = 0; jt < NT; ++jt) {
+      const bf16* w = ring.wait();
+      wg_fence();
+      fence_regs(acc[jt]);
+#pragma unroll
+      for (int k = 0; k < kHC; k += 16)
+        mma_n64_ss(acc[jt], desc_at(gs, kRows, 0, k), desc_at(w, 128, 64 * wg, k), h0 + k > 0);
+      wg_commit();
+      ring.retire(cluster);
+    }
+    ring.drain(cluster);  // the next chunk's conv rewrites g
+  }
+#pragma unroll
+  for (int jt = 0; jt < NT; ++jt) fence_regs(acc[jt]);
+
+  // 5. out = T(x2 + T(o + b2)) for the tile's tokens
+  if (real) {
+#pragma unroll
+    for (int jt = 0; jt < NT; ++jt) {
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {  // columns c, c + 1
+        const int o = acc_row(i), c = 128 * jt + 64 * wg + acc_col(i);
+        if (o >= no || c >= C) continue;
+        const int yy = y0 + o / tw, xx = x0 + o % tw;
+        if (yy < H && xx < W) {
+          const int t = (o / tw + 1) * hw + o % tw + 1;
+          const float2 x2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qs + t * C + c));
+          const float2 bias = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b2 + c));
+          *reinterpret_cast<__nv_bfloat162*>(out + (tok0 + (size_t)yy * W + xx) * C + c) =
+              __floats2bfloat162_rn(x2.x + rnd(acc[jt][i] + bias.x),
+                                    x2.y + rnd(acc[jt][i + 1] + bias.y));
         }
       }
     }
   }
-  __syncthreads();  // phase 1's room is free
+  cluster_sync();  // no block leaves while others may still write into it
+}
 
-  // 2. the MixFFN on y; W1's first chunk goes in flight first
-  bf16* w1s = reinterpret_cast<bf16*>(smem + L.f_w);
-  bf16* w2s = reinterpret_cast<bf16*>(smem + L.f_w + align128((size_t)kHC * ldx * 2));
-  float* hf = reinterpret_cast<float*>(smem + L.f_hf);
-  bf16* gs = reinterpret_cast<bf16*>(smem + L.f_gs);
-  stage_w1(w1s, w1, 0, C);
-  __pipeline_commit();
-  const int oct = C / 16, n_out = (tl.nop / 16) * oct;
-  FragC acc[kMaxOutFrags];
-#pragma unroll
-  for (int f = 0; f < kMaxOutFrags; ++f) wmma::fill_fragment(acc[f], 0.f);
-  ffn_chunks_bf16(acc, ys, w1s, w2s, hf, gs, b1s, dwbs, tb, tl, w1, b1, dwk, dwb, w2, C, 0,
-                  4 * C);
-
-  // 3. out = bf16(x2 + bf16(o + b2)) for the tile's tokens
-  float* sc = reinterpret_cast<float*>(smem + L.f_w) + warp * 256;
-#pragma unroll
-  for (int f = 0; f < kMaxOutFrags; ++f) {
-    const int i = warp + kWarpsTC * f;
-    if (i < n_out) {
-      const int rt = i / oct, ct = i % oct;
-      for_each_acc(acc[f], sc, [&](int r, int cc, float v) {
-        const int o = rt * 16 + r, c = ct * 16 + cc;
-        if (o >= tl.no) return;
-        const int y = tl.y0 + o / tl.tw, x = tl.x0 + o % tl.tw;
-        if (y < H && x < W)
-          out[(tok0 + (size_t)y * W + x) * C + c] = __float2bfloat16(
-              __bfloat162float(x2s[o * ldx + c]) + rnd(v + __bfloat162float(b2[c])));
-      });
-    }
+// The kernel for C = heads * 64 up to kMaxCB (NT = 1 to 5 W2 tiles);
+// nullptr for any other C.
+inline decltype(&block_bf16<1>) bf16_kernel(int C) {
+  if (C < kHeadDim || C % kHeadDim != 0 || C > kMaxCB) return nullptr;
+  switch ((C + 127) / 128) {
+    case 1: return block_bf16<1>;
+    case 2: return block_bf16<2>;
+    case 3: return block_bf16<3>;
+    case 4: return block_bf16<4>;
+    default: return block_bf16<5>;
   }
 }
 
 template <typename T, typename Kernel>
 int launch(Kernel kernel, int dtype, int threads, const void* ln1x, const void* kv_in,
-           const void* res, const void* wq, const void* bq, const void* wkv, const void* bkv,
-           const void* wp, const void* bp, const void* lns, const void* lnb, const void* w1,
-           const void* b1, const void* dwk, const void* dwb, const void* w2, const void* b2,
-           void* kv_scratch, void* out, int B, int H, int W, int M, int C, int heads, int th,
-           int tw, float scale, float eps, cudaStream_t stream) {
+               const void* res, const void* wq, const void* bq, const void* wkv, const void* bkv,
+               const void* wp, const void* bp, const void* lns, const void* lnb, const void* w1,
+               const void* b1, const void* dwk, const void* dwb, const void* w2, const void* b2,
+               void* kv_scratch, void* out, int B, int H, int W, int M, int C, int heads, int th,
+               int tw, float scale, float eps, cudaStream_t stream) {
   const int no = th * tw;
   const size_t smem = Layout(dtype, C, ceil16((th + 2) * (tw + 2)), no, ceil16(no)).bytes();
   cudaError_t err =
@@ -528,15 +762,52 @@ int launch(Kernel kernel, int dtype, int threads, const void* ln1x, const void* 
   return (int)cudaGetLastError();
 }
 
+int launch_bf16(const void* ln1x, const void* kv_in, const void* res, const void* wq,
+                const void* bq, const void* wkv, const void* bkv, const void* wp, const void* bp,
+                const void* lns, const void* lnb, const void* w1, const void* b1,
+                const void* dwk, const void* dwb, const void* w2, const void* b2,
+                void* kv_scratch, void* out, int B, int H, int W, int M, int C, int heads,
+                int th, int tw, int cluster, int stages, float scale, float eps,
+                cudaStream_t stream) {
+  const int rows = 64 / cluster;  // each block's share of a tile's rows
+  CUtensorMap mq, mp, m1, m2;
+  int err = make_map(&mq, wq, C, C, rows);
+  if (err == 0) err = make_map(&mp, wp, C, C, rows);
+  if (err == 0) err = make_map(&m1, w1, 4 * C, C, rows);
+  if (err == 0) err = make_map(&m2, w2, C, 4 * C, 2 * rows);
+  if (err != 0) return err;
+  err = launch_kv_proj<bf16>(kv_in, wkv, bkv, kv_scratch, B * M, C, stream);
+  if (err != 0) return err;
+  const int tiles = B * ((H + th - 1) / th) * ((W + tw - 1) / tw);
+  const int grid = (tiles + cluster - 1) / cluster * cluster;
+  return launch_cluster(bf16_kernel(C), dim3(grid), kHopperThreads, BlockLayout(C, stages).bytes(),
+                        cluster, stream, mq, mp, m1, m2, static_cast<const bf16*>(ln1x),
+                        static_cast<const bf16*>(kv_scratch), static_cast<const bf16*>(res),
+                        static_cast<const bf16*>(bq), static_cast<const bf16*>(bp),
+                        static_cast<const bf16*>(lns), static_cast<const bf16*>(lnb),
+                        static_cast<const bf16*>(b1), static_cast<const bf16*>(dwk),
+                        static_cast<const bf16*>(dwb), static_cast<const bf16*>(b2),
+                        static_cast<bf16*>(out), B, H, W, M, C, heads, th, tw, stages, scale, eps);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory of one block for a (th, tw) tile; kernels/fused_block.py:
-// smem_bytes mirrors it (its tests hold the two equal on the card).
-int pf_fused_block_smem(int dtype, int C, int th, int tw) {
+// Shared memory of one block: float32 for a (th, tw) tile, bfloat16 for a
+// ring of ``stages`` stages (any tile); kernels/fused_block.py: smem_bytes
+// mirrors both (its GPU tests hold them equal).
+int pf_fused_block_smem(int dtype, int C, int th, int tw, int stages) {
+  if (dtype == 1) return (int)BlockLayout(C, stages).bytes();
   const int no = th * tw;
   return (int)Layout(dtype, C, ceil16((th + 2) * (tw + 2)), no, ceil16(no)).bytes();
+}
+
+// How many clusters of ``cluster`` bf16 blocks with a ring of ``stages``
+// stages the card runs at once (kernels/fused_block.py: plan).
+int pf_fused_block_max_clusters(int C, int stages, int cluster) {
+  if (bf16_kernel(C) == nullptr) return 0;
+  return max_clusters(bf16_kernel(C), kHopperThreads, BlockLayout(C, stages).bytes(), cluster);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Every pointer is a contiguous device
@@ -544,29 +815,42 @@ int pf_fused_block_smem(int dtype, int C, int th, int tw) {
 // wkv (2C, C), w1 (4C, C), w2 (C, 4C) as nn.Linear (out, in); dwk
 // (4C, 1, 3, 3); biases and the LN2 affine 1-D; kv_scratch holds B * M * 2C
 // elements. Requires C = heads * 64, 1 <= M <= 128 and a tile (th, tw) from
-// kernels/fused_block.py:choose_tile ((th+2)(tw+2) <= 128 halo tokens, the
-// bf16 accumulators, shared memory). Returns cudaGetLastError() after the
-// launches (0 on success).
+// kernels/fused_block.py (float32: choose_tile, (th+2)(tw+2) <= 128 halo
+// tokens and shared memory; bfloat16: plan, (th+2)(tw+2) <= 64, C <= 640,
+// ``cluster`` of 1, 2, 4 or 8 blocks sharing the weight ring of ``stages``
+// stages, 2 to 6). Returns cudaGetLastError() after the launches (0 on
+// success); a launch the card refuses is an error.
 int pf_fused_block(int dtype, const void* ln1x, const void* kv_in, const void* res,
                    const void* wq, const void* bq, const void* wkv, const void* bkv,
                    const void* wp, const void* bp, const void* lns, const void* lnb,
                    const void* w1, const void* b1, const void* dwk, const void* dwb,
                    const void* w2, const void* b2, void* kv_scratch, void* out, int B, int H,
-                   int W, int M, int C, int heads, int th, int tw, float scale, float eps,
-                   void* stream) {
+                   int W, int M, int C, int heads, int th, int tw, int cluster, int stages,
+                   float scale, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (heads < 1 || C != heads * kHeadDim || M < 1 || M > kMaxM || th < 1 || tw < 1 ||
-      ceil16((th + 2) * (tw + 2)) > kMaxHalo)
+  if (heads < 1 || C != heads * kHeadDim || M < 1 || M > kMaxM || th < 1 || tw < 1)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return launch<float>(block_f32, 0, kThreadsF32, ln1x, kv_in, res, wq, bq, wkv, bkv, wp, bp,
-                         lns, lnb, w1, b1, dwk, dwb, w2, b2, kv_scratch, out, B, H, W, M, C,
-                         heads, th, tw, scale, eps, st);
-  if (dtype != 1 || (ceil16(th * tw) / 16) * (C / 16) > kWarpsTC * kMaxOutFrags)
+  if (dtype == 0) {
+    if (ceil16((th + 2) * (tw + 2)) > kMaxHalo) return (int)cudaErrorInvalidValue;
+    return launch<float>(block_f32, 0, kThreadsF32, ln1x, kv_in, res, wq, bq, wkv, bkv, wp,
+                             bp, lns, lnb, w1, b1, dwk, dwb, w2, b2, kv_scratch, out, B, H, W, M,
+                             C, heads, th, tw, scale, eps, st);
+  }
+  if (dtype != 1 || (th + 2) * (tw + 2) > kRows || bf16_kernel(C) == nullptr ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) || stages < 2 ||
+      stages > kMaxStagesB)
     return (int)cudaErrorInvalidValue;
-  return launch<bf16>(block_bf16, 1, kThreadsTC, ln1x, kv_in, res, wq, bq, wkv, bkv, wp, bp,
-                      lns, lnb, w1, b1, dwk, dwb, w2, b2, kv_scratch, out, B, H, W, M, C, heads,
-                      th, tw, scale, eps, st);
+  return launch_bf16(ln1x, kv_in, res, wq, bq, wkv, bkv, wp, bp, lns, lnb, w1, b1, dwk, dwb, w2,
+                     b2, kv_scratch, out, B, H, W, M, C, heads, th, tw, cluster, stages, scale,
+                     eps, st);
+}
+
+// The Hopper GEMM core alone, for the GPU tests: out (M, N) f32 = a (M, K)
+// . w (N, K)^T, bf16; mode 0 reads A from shared memory, mode 1 from
+// registers (hopper_gemm.cuh: gemm_core).
+int pf_gemm_core(const void* a, const void* w, void* out, int M, int N, int K, int mode,
+                 void* stream) {
+  return launch_gemm_core(a, w, out, M, N, K, mode, static_cast<cudaStream_t>(stream));
 }
 
 const char* pf_cuda_error_string(int err) {

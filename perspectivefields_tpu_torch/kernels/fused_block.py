@@ -5,7 +5,9 @@ Replaces the TPU kernel ``perspectivefields_tpu/kernels/fused_block.py``
 ``_xla_reference``). The CUDA source is ``csrc/fused_block.cu``; its header
 says what bounds the block on the H100 and what the design does about it (a
 block owns a token tile plus a 1-pixel halo and keeps the attention output,
-x2, y and the 4C hidden map on chip).
+x2, y and the 4C hidden map on chip; at bf16 its products run on wgmma and
+the blocks of a thread-block cluster share each weight tile by TMA
+multicast).
 
     a = attention(ln1x, kv_in)   (kernels/fused_attention.py's function)
     x2 = T(res + a);  y = T(LayerNorm(x2)) in f32
@@ -33,21 +35,28 @@ from .build import library, raise_on_error
 # sets it to 0 and reads it back to show the main path went through here).
 LAUNCHES = 0
 
-# csrc/fused_block.cu's limits and shared-memory layout (kSub, the
-# attention phase's tiles from attention_common.cuh, Layout)
+# csrc/fused_block.cu's limits and shared-memory layouts: the float32
+# kernel's (kSub, Layout; halo up to 128 tokens) and the bf16 kernel's
+# (kRows, BlockLayout; the ring of hopper_gemm.cuh)
 SUB_ROWS = 32
 MAX_KEYS = fa.MAX_KEYS
 MAX_HALO = mf.MAX_HALO
-MAX_OUT_TILES = mf.MAX_OUT_TILES
 SMEM_LIMIT = mf.SMEM_LIMIT
+ROWS_BF16 = 64  # the bf16 kernel's halo tokens: wgmma's M
+MAX_WIDTH_BF16 = 640  # the bf16 kernel's widest C (kMaxCB): two 64 x C operands fit
+STAGE_BYTES = 16384
+MAX_STAGES = 6
+CLUSTERS = (8, 4, 2, 1)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "pf_fused_block": (
-        [ctypes.c_int] + [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8
+        [ctypes.c_int] + [ctypes.c_void_p] * 19 + [ctypes.c_int] * 10
         + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     ),
-    "pf_fused_block_smem": [ctypes.c_int] * 4,
+    "pf_fused_block_smem": [ctypes.c_int] * 5,
+    "pf_fused_block_max_clusters": [ctypes.c_int] * 3,
+    "pf_gemm_core": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 }
 
 
@@ -74,6 +83,14 @@ def fused_block_viable(b, n, c, hdim, m, num_heads) -> bool:
     return _tile_bytes(n, c, hdim, mpad, side, side, 2, 1) <= 13 * 2**20
 
 
+def takes_width(c: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel runs a C-wide block in ``dtype``: every C =
+    heads * 64 in float32; up to MAX_WIDTH_BF16 in bfloat16, which is all
+    that ``fused_block_viable`` admits but C = 704 on maps of at most 31
+    tokens."""
+    return dtype != torch.bfloat16 or (c % 64 == 0 and 64 <= c <= MAX_WIDTH_BF16)
+
+
 def fused_block_reference(
     ln1x, kv_in, res, wq, bq, wkv, bkv, wproj, bproj, ln2s, ln2b, w1, b1, dwk, dwb, w2, b2,
     num_heads: int, scale: float, h: int, w: int, eps: float = 1e-6,
@@ -81,8 +98,9 @@ def fused_block_reference(
     """Plain-torch version of the kernel, with the kernel's casts (JAX:
     _xla_reference): the attention sub-block's plain version, x2 in the
     compute dtype, LN2 in f32, the MixFFN's plain version, the second skip
-    in the compute dtype. LN2 is F.layer_norm, whose moments the kernel
-    sums in the same order on the card, where JAX's takes the fast variance
+    in the compute dtype. LN2 is F.layer_norm, whose moments the f32 kernel
+    sums in the same order on the card (the bf16 kernel in two passes),
+    where JAX's takes the fast variance
     E[x^2] - mu^2: with random weights that difference (~3e-6 at stage 4)
     grew past the 5e-4 field tolerance of the f32 path."""
     cdt, f32 = ln1x.dtype, torch.float32
@@ -97,34 +115,34 @@ def fused_block_reference(
 _align128, _ceil16 = mf._align128, mf._ceil16
 
 
-def smem_bytes(dtype: torch.dtype, c: int, th: int, tw: int) -> int:
-    """Shared memory of one block (csrc/fused_block.cu: Layout): y for the
-    halo tokens, x2 for the tile's tokens, the FFN's biases and tables, and
-    one room for the attention phase, then the FFN phase."""
+def smem_bytes(dtype: torch.dtype, c: int, th: int, tw: int, stages: int = MAX_STAGES) -> int:
+    """Shared memory of one block. float32 (csrc/fused_block.cu: Layout): y
+    for the halo tokens, x2 for the tile's tokens, the FFN's biases and
+    tables, and one room for the attention phase, then the FFN phase.
+    bfloat16 (BlockLayout, any tile): the ring of ``stages`` 16 KB stages,
+    two 64 x C operands (the first zero-padded to whole 128-column tiles),
+    K_h (then p) and V_h^T, the softmax's exchange, the tables, the
+    barriers, and 1024 bytes to align the base."""
+    if dtype == torch.bfloat16:
+        rows, keys = ROWS_BF16, MAX_KEYS
+        return (stages * STAGE_BYTES + rows * (-(-c // 128) * 128 + c) * 2 + 2 * keys * 64 * 2
+                + 4 * rows * 4 + 2 * rows * 4 + 16 * stages + 1024)
     nhp, no = _ceil16((th + 2) * (tw + 2)), th * tw
     nop = _ceil16(no)
-    isz, ld = (4, c) if dtype == torch.float32 else (2, c + 8)
-    hc, hf_ld, gs_ld, ws_ld, max_m = mf.HIDDEN_CHUNK, mf.HIDDEN_CHUNK + 4, mf.HIDDEN_CHUNK + 8, 33, 128
-    persistent = (_align128(nhp * ld * isz) + _align128(no * ld * isz) + 2 * _align128(hc * 4)
+    hc, hf_ld, ws_ld, max_m = mf.HIDDEN_CHUNK, mf.HIDDEN_CHUNK + 4, 33, 128
+    persistent = (_align128(nhp * c * 4) + _align128(no * c * 4) + 2 * _align128(hc * 4)
                   + 2 * MAX_HALO * 4)
-    if dtype == torch.float32:
-        attn = 2 * _align128(SUB_ROWS * ld * 4) + _align128(SUB_ROWS * max_m * 4) + _align128(32 * ws_ld * 4)
-        ffn = (_align128(nhp * hf_ld * 4) + _align128(nop * hf_ld * 4) + _align128(nop * ld * 4)
-               + _align128(32 * ws_ld * 4))
-    else:
-        scratch = 16 * 256 * 4
-        attn = (2 * _align128(SUB_ROWS * ld * 2) + 2 * _align128(max_m * 72 * 2)
-                + _align128(SUB_ROWS * (max_m + 8) * 2) + _align128(SUB_ROWS * (max_m + 4) * 4) + scratch)
-        weights = _align128(hc * ld * 2) + _align128(c * gs_ld * 2)
-        ffn = max(weights, scratch) + _align128(nhp * hf_ld * 4) + _align128(nop * gs_ld * 2)
+    attn = 2 * _align128(SUB_ROWS * c * 4) + _align128(SUB_ROWS * max_m * 4) + _align128(32 * ws_ld * 4)
+    ffn = (_align128(nhp * hf_ld * 4) + _align128(nop * hf_ld * 4) + _align128(nop * c * 4)
+           + _align128(32 * ws_ld * 4))
     return persistent + max(attn, ffn)
 
 
 def _block_cycles(th: int, tw: int, c: int, heads: int) -> float:
-    """Rough cycles of one block: the attention phase per 32 halo tokens
-    (the q and out projections' 16x16 tile-steps on 16 warps, ~200 cycles
-    each, and ~3000 per head for K/V staging, logits, softmax and P.V),
-    then every hidden chunk as ``mixffn._chunk_cycles`` counts it."""
+    """Rough cycles of one float32 block: the attention phase per 32 halo
+    tokens (the q and out projections' 16x16 tile-steps, ~200 cycles each,
+    and ~3000 per head for K/V staging, logits, softmax and P.V), then
+    every hidden chunk as ``mixffn._chunk_cycles`` counts it."""
     subs = -(-_ceil16((th + 2) * (tw + 2)) // SUB_ROWS)
     proj = 2 * -(-(c // 16) // 16) * (c // 16) * 200
     return subs * (proj + heads * 3000) + (4 * c // mf.HIDDEN_CHUNK) * mf._chunk_cycles(th, tw, c)
@@ -132,19 +150,20 @@ def _block_cycles(th: int, tw: int, c: int, heads: int) -> float:
 
 @functools.lru_cache(maxsize=None)
 def choose_tile(
-    b: int, h: int, w: int, c: int, heads: int, dtype: torch.dtype, sms: int = 132
+    b: int, h: int, w: int, c: int, heads: int, dtype: torch.dtype = torch.float32, sms: int = 132
 ) -> tuple[int, int]:
-    """The output tile (TH, TW) a block owns for a (b, h, w, c) map: among
-    the tiles the kernel takes (halo <= 128 tokens, the bf16 accumulators,
-    shared memory), the one whose launch takes the fewest cycles by
-    ``_block_cycles``, counting the waves of blocks on ``sms`` SMs."""
+    """The output tile (TH, TW) a float32 block owns for a (b, h, w, c) map:
+    among the tiles the kernel takes (halo <= 128 tokens, shared memory),
+    the one whose launch takes the fewest cycles by ``_block_cycles``,
+    counting the waves of blocks on ``sms`` SMs. bfloat16 tiles come from
+    ``plan``."""
+    if dtype == torch.bfloat16:
+        return plan(b, h, w, c, heads, sms)["tile"]
     best = None
     for th in range(1, h + 1):
         for tw in range(1, w + 1):
             if _ceil16((th + 2) * (tw + 2)) > MAX_HALO:
                 break
-            if dtype == torch.bfloat16 and _ceil16(th * tw) // 16 * (c // 16) > MAX_OUT_TILES:
-                continue
             if smem_bytes(dtype, c, th, tw) > SMEM_LIMIT:
                 continue
             blocks = b * -(-h // th) * -(-w // tw)
@@ -154,6 +173,46 @@ def choose_tile(
     if best is None:
         raise ValueError(f"fused_block: no tile fits C={c} ({dtype}) in shared memory")
     return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, h: int, w: int, c: int, heads: int, sms: int = 132, fits: tuple = ()) -> dict:
+    """The bf16 launch for a (b, h, w, c) map. Every block walks all of the
+    block's weights for its 64 halo rows, so a block's time hardly depends
+    on its tile: the tile is the one (halo <= 64 tokens) with the fewest
+    waves of blocks on ``sms`` SMs, then the fewest blocks, then the
+    smallest. The cluster is the largest of 8, 4, 2, 1 that has at least 2
+    blocks' worth of tiles and takes no more waves than single blocks would
+    (``fits``: (k, how many clusters of k the card runs at once) pairs, as
+    ``clusters_fit`` reads them on the card; by default sms // k). Its
+    blocks share every weight tile, so L2 serves each tile once per
+    cluster. The ring takes as many 16 KB stages as fit (2 to 6: a
+    consumer releases a stage only once the next one has arrived). Also
+    the L2 weight bytes a call: Wq, Wp, W1 and W2 once per cluster."""
+    if not takes_width(c, torch.bfloat16):
+        raise ValueError(f"fused_block: bf16 needs C = heads * 64 <= {MAX_WIDTH_BF16}, got C={c}")
+    best = None
+    for th in range(1, h + 1):
+        for tw in range(1, w + 1):
+            if (th + 2) * (tw + 2) > ROWS_BF16:
+                break
+            blocks = b * -(-h // th) * -(-w // tw)
+            key = (-(-blocks // sms), blocks, th * tw)
+            if best is None or key < best[0]:
+                best = (key, th, tw, blocks)
+    _, th, tw, tiles = best
+    fit = dict(fits).get if fits else (lambda k, sms=sms: sms // k)
+
+    def waves(k):
+        return -(-(-(-tiles // k)) // max(1, fit(k)))
+
+    cluster = next(k for k in CLUSTERS if k == 1 or (tiles >= 2 * k and fit(k) and waves(k) <= waves(1)))
+    stages = max(s for s in range(2, MAX_STAGES + 1)
+                 if s == 2 or smem_bytes(torch.bfloat16, c, th, tw, s) <= SMEM_LIMIT)
+    grid = -(-tiles // cluster) * cluster
+    return dict(tile=(th, tw), cluster=cluster, stages=stages, blocks=grid,
+                smem=smem_bytes(torch.bfloat16, c, th, tw, stages),
+                weight_bytes=grid // cluster * 10 * c * c * 2)
 
 
 def check_kernel_args(
@@ -211,10 +270,26 @@ def load() -> None:
     _library()
 
 
-def kernel_smem_bytes(dtype: torch.dtype, c: int, th: int, tw: int) -> int:
+def kernel_smem_bytes(dtype: torch.dtype, c: int, th: int, tw: int, stages: int = MAX_STAGES) -> int:
     """The kernel's own count of one block's shared memory (needs nvcc);
     ``smem_bytes`` must equal it."""
-    return _library().pf_fused_block_smem(_DTYPE_CODES[dtype], c, th, tw)
+    return _library().pf_fused_block_smem(_DTYPE_CODES[dtype], c, th, tw, stages)
+
+
+@functools.lru_cache(maxsize=None)
+def clusters_fit(c: int, stages: int, cluster: int) -> int:
+    """How many clusters of ``cluster`` bf16 blocks the card runs at once
+    (cudaOccupancyMaxActiveClusters; needs the card)."""
+    return _library().pf_fused_block_max_clusters(c, stages, cluster)
+
+
+def launch_plan(b: int, h: int, w: int, c: int, heads: int, device: torch.device) -> dict:
+    """The bf16 plan the wrapper launches on ``device``: ``plan`` with the
+    card's own count of the clusters it runs at once (needs the card)."""
+    sms = mf.sm_count(device)
+    stages = plan(b, h, w, c, heads, sms)["stages"]
+    fits = tuple((k, clusters_fit(c, stages, k)) for k in CLUSTERS)
+    return plan(b, h, w, c, heads, sms, fits)
 
 
 def fused_block(
@@ -233,15 +308,21 @@ def fused_block(
     check_kernel_args(*args, num_heads, h, w)
     b, n, c = ln1x.shape
     m = kv_in.shape[1]
-    th, tw = choose_tile(b, h, w, c, num_heads, ln1x.dtype, mf.sm_count(ln1x.device))
+    sms = mf.sm_count(ln1x.device)
+    cluster, stages = 1, 0
+    if ln1x.dtype == torch.float32:
+        th, tw = choose_tile(b, h, w, c, num_heads, ln1x.dtype, sms)
+    else:
+        p = launch_plan(b, h, w, c, num_heads, ln1x.device)
+        (th, tw), cluster, stages = p["tile"], p["cluster"], p["stages"]
     lib = _library()
     kv = torch.empty((b, m, 2 * c), dtype=ln1x.dtype, device=ln1x.device)
     out = torch.empty_like(ln1x)
     with torch.cuda.device(ln1x.device):
         err = lib.pf_fused_block(
             _DTYPE_CODES[ln1x.dtype], *(t.data_ptr() for t in args), kv.data_ptr(),
-            out.data_ptr(), b, h, w, m, c, num_heads, th, tw, float(scale), float(eps),
-            torch.cuda.current_stream(ln1x.device).cuda_stream,
+            out.data_ptr(), b, h, w, m, c, num_heads, th, tw, cluster, stages, float(scale),
+            float(eps), torch.cuda.current_stream(ln1x.device).cuda_stream,
         )
     raise_on_error(lib, err, "fused_block")
     LAUNCHES += 1

@@ -26,7 +26,7 @@ from ..config import BackboneConfig
 
 from ..kernels import fused_attention as fa
 from ..kernels import stage1_attention as s1
-from ..kernels.fused_block import fused_block, fused_block_viable
+from ..kernels.fused_block import fused_block, fused_block_viable, takes_width
 from ..kernels.mixffn import mixffn
 from ..ops.activations import gelu
 from .common import conv_nhwc
@@ -175,7 +175,8 @@ class Block(nn.Module):
         "fused_block" (its plain version on the CPU) where JAX's Block
         would fuse it (perspectivefields_tpu/models/mit.py:456-469:
         inference, q/kv biases, head_dim 64, ``fused_block_viable``), plus
-        the kernel's own limits; else the attention's route."""
+        the kernel's own limits (``takes_width``: the bf16 kernel stops at
+        C = 640); else the attention's route."""
         attn = self.attn
         n_keys = (h // attn.sr_ratio) * (w // attn.sr_ratio)
         hidden = self.mlp.fc1.out_features
@@ -188,6 +189,7 @@ class Block(nn.Module):
             and n_keys <= fa.MAX_KEYS
             and hidden == 4 * attn.dim
             and fused_block_viable(b, h * w, attn.dim, hidden, n_keys, attn.num_heads)
+            and takes_width(attn.dim, self.norm2.weight.dtype)
         ):
             return "fused_block"
         return attn.route(h * w, n_keys, device)

@@ -139,23 +139,70 @@ def test_kernel_arg_check_refuses(name):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("h,w,c", FLAGSHIP + [RAGGED])
 def test_tokens_fit_the_kernel_limits(h, w, c, dtype):
-    """The token count the wrapper picks is one csrc/convnext_block.cu
-    takes: a multiple of 16 up to 64, the bf16 accumulators, shared memory."""
-    no, hc = cb.choose_tokens(c, dtype)
-    assert no % 16 == 0 and 16 <= no <= cb.MAX_TOKENS and hc in cb.HIDDEN_CHUNKS
-    assert cb.smem_bytes(dtype, c, no, hc) <= cb.SMEM_LIMIT
-    if dtype == torch.bfloat16:
-        assert (no // 16) * (c // 16) <= cb.MAX_OUT_TILES
-        cc = cb.stage_channels(h, w, c, no)
-        assert c % cc == 0 and min(h, (no - 1) // w + 8) * w * cc <= no * (c + 8)
+    """The launch the wrapper picks is one csrc/convnext_block.cu takes:
+    float32, a multiple of 16 tokens up to 64 in shared memory; bfloat16,
+    64-token tiles, a staging chunk of 8k <= 256 channels that divides C,
+    2-6 ring stages in shared memory, a grid the cluster divides."""
+    if dtype == torch.float32:
+        no = cb.choose_tokens(c, dtype)
+        assert no % 16 == 0 and 16 <= no <= cb.MAX_TOKENS
+        assert cb.smem_f32(c, no) <= cb.SMEM_LIMIT
+    else:
+        p = cb.plan(2, h, w, c)
+        assert p["tokens"] == cb.TOKENS and (c // p["cluster"]) % p["cc"] == 0 and p["cc"] % 8 == 0
+        assert p["cc"] <= cb.CONSUMER_THREADS
+        assert 2 <= p["stages"] <= cb.MAX_STAGES and p["smem"] <= cb.SMEM_LIMIT
+        assert p["smem"] == cb.smem_bytes(c, h, w, p["cc"], p["pc"], p["stages"])
+        assert p["cluster"] in cb.CLUSTERS and p["blocks"] % p["cluster"] == 0
+        assert p["blocks"] == 2 * -(-h * w // 64) * p["cluster"]
     args = _torch_args(_inputs(np.random.default_rng(6), 1, 1, 1, c))
     args[0] = torch.zeros(2, h, w, c)
     cb.check_kernel_args(*args)
 
 
+@pytest.mark.parametrize("b", [1, 3, 5, 8, 32])
+@pytest.mark.parametrize("h,w,c", FLAGSHIP + [RAGGED, (13, 9, 768), (7, 11, 384)])
+def test_hidden_split_fills_the_card_and_fits(b, h, w, c):
+    """The hidden dimension is split over a cluster only while the tiles
+    leave SMs idle, at most one 64-channel chunk a block, and every plan
+    fits shared memory with its grid a multiple of the cluster."""
+    tiles = b * -(-h * w // 64)
+    p = cb.plan(b, h, w, c, 132)
+    assert p["smem"] <= cb.SMEM_LIMIT and p["blocks"] == tiles * p["cluster"]
+    assert p["cluster"] <= 4 * c // 64
+    assert p["cluster"] == 1 or tiles * p["cluster"] <= 132
+    if tiles * 2 <= 132 and 4 * c // 64 >= 2:
+        assert p["cluster"] >= 2
+    # the cluster sizes the card reports bound the choice
+    assert cb.plan(b, h, w, c, 132, ((8, 0), (4, 0), (2, 0), (1, 132)))["cluster"] == 1
+
+
+def test_flagship_plans():
+    """B=8 at the flagship's stages: the split fills the card at C = 384 and
+    768, and C = 768 takes two 384-column passes."""
+    got = {c: cb.plan(8, h, w, c) for h, w, c in FLAGSHIP}
+    assert [got[c]["cluster"] for c in (96, 192, 384, 768)] == [1, 1, 2, 8]
+    assert [got[c]["passes"] for c in (96, 192, 384, 768)] == [1, 1, 1, 2]
+    assert [got[c]["pc"] for c in (96, 192, 384, 768)] == [96, 192, 384, 384]
+
+
+@pytest.mark.parametrize("b,h,w,c,pc,passes", [(1, 7, 7, 512, 256, 2), (8, 14, 14, 512, 256, 2),
+                                               (1, 4, 4, 1024, 256, 4), (8, 7, 7, 1024, 256, 4),
+                                               (2, 9, 5, 640, 384, 2)])
+def test_wide_maps_take_passes_that_fit(b, h, w, c, pc, passes):
+    """Past 384 channels the output columns take several passes: 256 at
+    C = 512 (two passes, no column wasted), 256 at C = 1024 (the f32
+    partial output of 384 columns does not fit beside y), 384 at C = 640
+    (the last pass runs past C). Every plan fits with 2 or more stages."""
+    p = cb.plan(b, h, w, c)
+    assert (p["pc"], p["passes"]) == (pc, passes)
+    assert 2 <= p["stages"] and p["smem"] == cb.smem_bytes(c, h, w, p["cc"], pc, p["stages"])
+    assert p["smem"] <= cb.SMEM_LIMIT and p["blocks"] % p["cluster"] == 0
+
+
 def test_too_wide_a_map_is_refused():
     with pytest.raises(ValueError, match="too wide"):
-        cb.stage_channels(8, 4000, 96, 64)
+        cb.plan(1, 8, 4000, 96)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -221,9 +221,117 @@ def test_fused_block_kernel_matches_plain_version(cuda_device, b, h, w, c, heads
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_fused_block_smem_count_matches_kernel(cuda_device, dtype):
-    for c in (128, 320, 512):
+    for c in (128, 192, 320, 512, 640):
         for th, tw in [(1, 1), (2, 2), (3, 3), (5, 5), (4, 7)]:
-            assert fb.smem_bytes(dtype, c, th, tw) == fb.kernel_smem_bytes(dtype, c, th, tw)
+            for stages in (2, 3, 6):
+                assert fb.smem_bytes(dtype, c, th, tw, stages) == fb.kernel_smem_bytes(
+                    dtype, c, th, tw, stages)
+
+
+@pytest.mark.cuda
+def test_convnext_block_smem_count_matches_kernel(cuda_device):
+    for c, h, w in [(96, 80, 80), (192, 40, 40), (384, 20, 20), (768, 10, 10), (64, 13, 7),
+                    (512, 7, 7), (1024, 4, 4)]:
+        p = cb.plan(8, h, w, c)
+        for stages in (1, p["stages"]):
+            assert cb.smem_bytes(c, h, w, p["cc"], p["pc"], stages) == cb.kernel_smem_bytes(
+                c, h, w, p["cc"], p["pc"], stages)
+
+
+# (K, N) of the Hopper GEMM core at the kernels' shapes: K = C, N = 64 / 128
+# hidden channels or C outputs (B4: C = 96 ... 768; B6: C = 320, 512)
+GEMM_SHAPES = [(k, n) for k in (96, 192, 384, 768, 320, 512) for n in (64, 128, k)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1], ids=["smem_a", "register_a"])
+@pytest.mark.parametrize("k,n", GEMM_SHAPES)
+def test_gemm_core_matches_matmul(cuda_device, k, n, mode):
+    """The wgmma core (descriptors, swizzle, the TMA ring, register A)
+    against torch.matmul in f32 on the same bf16 inputs; 130 rows, so the
+    last block's tile is ragged."""
+    rng = np.random.default_rng(k + n + mode)
+    a = _randn(rng, 130, k, dtype=torch.bfloat16)
+    w = _randn(rng, n, k, scale=k**-0.5, dtype=torch.bfloat16)
+    want = a.float() @ w.float().t()
+    libs = [cb._library()] + ([fb._library()] if k in (320, 512) else [])
+    for lib in libs:
+        got = cb.gemm_core(a, w, mode, lib)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,h,w,c",
+    [(1, 10, 10, 768), (3, 13, 9, 768), (5, 7, 11, 384), (1, 20, 20, 384), (3, 13, 9, 96),
+     (5, 7, 11, 192)],
+)
+def test_convnext_block_kernel_on_grids_the_cluster_does_not_divide(cuda_device, b, h, w, c, dtype):
+    """Batches of 1, 3 and 5 and ragged maps: token tiles cut at the image's
+    end, clusters that split the hidden dimension over 2-8 blocks."""
+    args = _cnx_args(b, h, w, c, dtype, seed=b + h)
+    before = cb.LAUNCHES
+    got = cb.convnext_block(*args)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES == before + 1
+    _assert_kernel_close(got, cb.convnext_block_reference(*[a.float() for a in args]), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,h,w,c,heads,m",
+    [(1, 20, 20, 320, 5, 100), (3, 13, 9, 320, 5, 100), (5, 7, 11, 512, 8, 100),
+     (1, 10, 10, 512, 8, 37), (5, 13, 9, 128, 2, 128), (3, 20, 20, 320, 5, 64)],
+)
+def test_fused_block_kernel_on_grids_the_cluster_does_not_divide(cuda_device, b, h, w, c, heads, m,
+                                                                 dtype):
+    """Batches of 1, 3 and 5 and ragged maps: tiles cut at the map's edge,
+    grids padded to the cluster with blocks that load and write nothing."""
+    args = _block_args(b, h, w, c, m, dtype, seed=b + h)
+    before = fb.LAUNCHES
+    got = fb.fused_block(*args, heads, 64**-0.5, h, w)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES == before + 1
+    want = fb.fused_block_reference(*[a.float() for a in args], heads, 64**-0.5, h, w)
+    _assert_kernel_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,w,c", [(1, 7, 7, 512), (1, 4, 4, 1024), (2, 9, 5, 640), (8, 7, 7, 1024)])
+def test_convnext_block_kernel_past_one_384_column_pass(cuda_device, b, h, w, c, dtype):
+    """Widths that are not a multiple of the 384-column pass (ConvNeXt-B's
+    512 and 1024 through ConvNeXt(dims=...)): passes of 256 columns, or a
+    last pass that runs past C and must store nothing there."""
+    args = _cnx_args(b, h, w, c, dtype, seed=c + b)
+    before = cb.LAUNCHES
+    got = cb.convnext_block(*args)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES == before + 1
+    _assert_kernel_close(got, cb.convnext_block_reference(*[a.float() for a in args]), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,h,w,c,m",
+    [(2, 9, 7, 192, 63), (3, 10, 10, 256, 100), (2, 10, 10, 384, 25), (1, 7, 9, 448, 128),
+     (2, 10, 10, 576, 100), (1, 8, 8, 640, 16)],
+)
+def test_fused_block_kernel_at_every_width_the_gate_admits(cuda_device, b, h, w, c, m, dtype):
+    """C = heads * 64 past MiT's four widths, up to 640 (NT = 2 to 5 W2
+    tiles), on maps where ``fused_block_viable`` admits them."""
+    assert fb.fused_block_viable(b, h * w, c, 4 * c, m, c // 64)
+    args = _block_args(b, h, w, c, m, dtype, seed=c)
+    before = fb.LAUNCHES
+    got = fb.fused_block(*args, c // 64, 64**-0.5, h, w)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES == before + 1
+    want = fb.fused_block_reference(*[a.float() for a in args], c // 64, 64**-0.5, h, w)
+    _assert_kernel_close(got, want, dtype)
 
 
 @pytest.mark.cuda

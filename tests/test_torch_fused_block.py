@@ -241,14 +241,74 @@ def test_kernel_arg_check_refuses(name):
     "b,h,w,c,heads", [(8, 20, 20, 320, 5), (8, 10, 10, 512, 8), (3, 7, 5, 128, 2), (32, 20, 20, 320, 5)]
 )
 def test_tile_fits_the_kernel_limits(b, h, w, c, heads, dtype):
-    """The tile the wrapper picks is one csrc/fused_block.cu takes: halo
-    <= 128 tokens, the bf16 accumulators, shared memory."""
+    """The tile the wrapper picks is one csrc/fused_block.cu takes: float32,
+    halo <= 128 tokens in shared memory; bfloat16, halo <= 64 tokens (one
+    wgmma M), a ring of 2-6 stages in shared memory, a grid padded to a
+    multiple of the cluster by fewer than a cluster of blocks."""
     th, tw = fb.choose_tile(b, h, w, c, heads, dtype)
     assert 1 <= th <= h and 1 <= tw <= w
-    assert -(-(th + 2) * (tw + 2) // 16) * 16 <= fb.MAX_HALO
-    assert fb.smem_bytes(dtype, c, th, tw) <= fb.SMEM_LIMIT
-    if dtype == torch.bfloat16:
-        assert -(-th * tw // 16) * (c // 16) <= fb.MAX_OUT_TILES
+    if dtype == torch.float32:
+        assert -(-(th + 2) * (tw + 2) // 16) * 16 <= fb.MAX_HALO
+        assert fb.smem_bytes(dtype, c, th, tw) <= fb.SMEM_LIMIT
+    else:
+        p = fb.plan(b, h, w, c, heads)
+        assert p["tile"] == (th, tw) and (th + 2) * (tw + 2) <= fb.ROWS_BF16
+        assert 2 <= p["stages"] <= fb.MAX_STAGES and p["smem"] <= fb.SMEM_LIMIT
+        tiles = b * -(-h // th) * -(-w // tw)
+        assert p["blocks"] % p["cluster"] == 0 and 0 <= p["blocks"] - tiles < p["cluster"]
+
+
+@pytest.mark.parametrize("b", [1, 3, 5, 8, 32])
+@pytest.mark.parametrize("h,w,c,heads", [(20, 20, 320, 5), (10, 10, 512, 8), (13, 9, 320, 5),
+                                         (7, 11, 512, 8), (7, 5, 128, 2)])
+def test_cluster_shares_weights_without_adding_waves(b, h, w, c, heads):
+    """The cluster is the largest that has two blocks' worth of tiles and
+    takes no more waves than single blocks; the weight bytes a call fall by
+    the cluster size, and a cluster the card cannot run is never chosen."""
+    p = fb.plan(b, h, w, c, heads, 132)
+    tiles = b * -(-h // p["tile"][0]) * -(-w // p["tile"][1])
+    k = p["cluster"]
+    assert k in fb.CLUSTERS and (k == 1 or tiles >= 2 * k)
+    assert -(-(-(-tiles // k)) // (132 // k)) <= -(-tiles // 132)
+    assert p["weight_bytes"] == p["blocks"] // k * 10 * c * c * 2
+    assert fb.plan(b, h, w, c, heads, 132, ((8, 0), (4, 0), (2, 0), (1, 132)))["cluster"] == 1
+
+
+def test_flagship_plans_cut_l2_weight_reads_fourfold():
+    """At B=8 the flagship's stages 3-4 take clusters of 8 and read the
+    weights from L2 at least 4x less than one read per 64-row block would."""
+    for h, c, heads in [(20, 320, 5), (10, 512, 8)]:
+        p = fb.plan(8, h, h, c, heads)
+        assert p["cluster"] == 8
+        assert p["weight_bytes"] * 4 <= p["blocks"] * 10 * c * c * 2
+
+
+@pytest.mark.parametrize("c", [704, 768])
+def test_bf16_refuses_a_width_it_has_no_kernel_for(c):
+    with pytest.raises(ValueError, match="C = heads"):
+        fb.plan(1, 4, 4, c, c // 64)
+
+
+@pytest.mark.parametrize("c", range(64, 641, 64))
+def test_bf16_plans_every_width_the_gate_admits_up_to_640(c):
+    """Every C = heads * 64 up to 640 has a bf16 kernel (NT = ceil(C / 128)
+    W2 tiles) whose layout fits shared memory with at least two ring stages,
+    on the smallest map and at B=8 on a 10 x 10 map."""
+    for b, h, w in [(1, 1, 1), (8, 10, 10)]:
+        p = fb.plan(b, h, w, c, c // 64)
+        assert p["stages"] >= 2 and p["smem"] <= fb.SMEM_LIMIT
+        assert p["smem"] == fb.smem_bytes(torch.bfloat16, c, *p["tile"], p["stages"])
+
+
+def test_route_sends_wider_bf16_blocks_to_the_unfused_path():
+    """C = 704 on a map of at most 31 tokens passes JAX's gate but has no
+    bf16 kernel: the block takes the attention's route in bf16 and the
+    fused block in f32."""
+    assert fb.fused_block_viable(1, 25, 704, 4 * 704, 25, 11)
+    blk = mit.Block(704, 11, 1, fuse_block=True).eval()
+    assert blk.route(1, 5, 5, torch.device("cpu")) == "fused_block"
+    blk = blk.to(torch.bfloat16)
+    assert blk.route(1, 5, 5, torch.device("cpu")) != "fused_block"
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
