@@ -7,13 +7,17 @@ Phases (each fails loudly; nothing is caught and turned into success):
   1. build the six CUDA kernels from perspectivefields_tpu_torch/csrc, one
      nvcc each, all started together; print ptxas's register/spill lines;
   2. each kernel vs its plain PyTorch version at the main path's shapes (B=8),
-     f32 and bf16, plus ragged cases (for the ConvNeXt-block and whole-block
-     kernels also batches of 1, 3 and 5 and maps their clusters do not
-     divide); device times of the kernel, its plain version and, where one
-     exists, one PyTorch library call, each from CUDA events around 30
-     back-to-back calls; the module paths the kernels stand in for; each
-     kernel's bound (and, for those two, each stage's share of it, L2 weight
-     bytes a call and cluster size). The decoder tail takes its inputs from a
+     f32 and bf16, plus ragged cases (batches of 1, 3 and 5, maps and row
+     tiles the clusters do not divide, widths past MiT's, M = 1 and 128);
+     device times of the kernel, its plain version and, where one exists,
+     one PyTorch library call, each from CUDA events around 30 back-to-back
+     calls (for the attention, MixFFN and ConvNeXt-block kernels also
+     replayed from a CUDA graph, without the host's launch cost); the module
+     paths the kernels stand in for; each kernel's bound
+     and, for the four on hopper_gemm.cuh (attention, MixFFN, ConvNeXt
+     block, whole block), each stage's share of it, L2 weight bytes a call
+     as plan() counts them, cluster size and, for attention and MixFFN, the
+     split. The decoder tail takes its inputs from a
      seeded f32 forward of the flagship (a = fusion1's upsampled output,
      ll) and the heads' own weights at Co = 2, 1 (the flagship's heads), 73
      and 180 (PersNet-360Cities's);
@@ -43,17 +47,33 @@ Phases (each fails loudly; nothing is caught and turned into success):
 The line before the last is a JSON object with the kernels' launch counts,
 errors, times and bounds; the last line is {"ok": true, "device": {...}}.
 Without a CUDA device it exits non-zero and prints neither.
+
+Two measurements of the bf16 attention and MixFFN kernels run apart from
+the phases above, each at the flagship's B=8 stage shapes:
+
+    python3 chip_smoke.py --phases
+        builds both with PF_PHASES (csrc/hopper_gemm.cuh's clock64() stamps)
+        and prints the cycles of each phase of block 0 (``[clk]`` lines),
+        then each launch's device time from torch.profiler (``[prof]``);
+    python3 chip_smoke.py --host-probe [ROOT]
+        the host's time to issue one call of each wrapper (back to back,
+        while the card is still busy), beside the device time back to back
+        and from a CUDA graph, for the package under ROOT (default: this
+        checkout; another commit unpacked with ``git archive`` compares).
 """
 
 from __future__ import annotations
 
+import ctypes
 import importlib
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -273,13 +293,17 @@ def _cnx_inputs(rng, b, h, w, c):
 
 
 def attention_kernel_phase() -> dict:
-    cases = [(8, n, 100, c, h) for n, c, h, _ in STAGES.values()] + [(3, 37, 5, 128, 2)]
+    # the stages at B=8, then ragged row tiles with M = 5, 128 and 1 (head
+    # splits of 2 and 8) and the one width past 640 that B6's gate sends here
+    cases = [(8, n, 100, c, h) for n, c, h, _ in STAGES.values()] + [
+        (3, 37, 5, 128, 2), (2, 129, 128, 320, 5), (1, 100, 1, 512, 8), (1, 31, 100, 704, 11)]
     max_abs, failures = 0.0, []
     for b, n, m, c, heads in cases:
         rng = np.random.default_rng(b * 1000 + n + m + c)
         args = _attn_inputs(rng, b, n, m, c)
         res = _randn(rng, b, n, c)
-        for dtype in (torch.float32, torch.bfloat16):
+        # the f32 kernel's 32-row tiles leave no room for C = 704 (bf16 only)
+        for dtype in (torch.float32, torch.bfloat16)[c > 640:]:
             for residual in (None, res):
                 a = [t.to(dtype) for t in args]
                 r = None if residual is None else residual.to(dtype)
@@ -322,6 +346,7 @@ def attention_kernel_phase() -> dict:
             ker_out = fa.fused_attention(*a, heads, 64**-0.5)
             lib_d = (lib_out.float() - ker_out.float()).abs().max().item()
             t_k = device_ms(lambda: fa.fused_attention(*a, heads, 64**-0.5))
+            t_g = graph_ms(lambda: fa.fused_attention(*a, heads, 64**-0.5))
             t_p = device_ms(lambda: fa.fused_attention_reference(*a, heads, 64**-0.5))
             t_l = device_ms(library)
         costs.append((roofline.attention_cost(8, n, 100, c, heads), blocks))
@@ -335,9 +360,13 @@ def attention_kernel_phase() -> dict:
         with torch.inference_mode():
             t_mk = device_ms(lambda: mods[True](xm))
             t_mp = device_ms(lambda: mods[False](xm))
+        p = fa.launch_plan(8, n, c, heads, 100, x.device)
         log(f"[kernel] fused_attention stage {stage} bf16 B=8 N={n} C={c} heads={heads}: kernel "
-            f"{t_k:.4f} ms, plain version {t_p:.4f} ms, F.multi_head_attention_forward {t_l:.4f} ms "
-            f"(max|d| vs kernel {lib_d:.2e}), bound {t_b:.4f} ms ({by}); SRAttention kernel path "
+            f"{t_k:.4f} ms (from a CUDA graph, without the host's launch cost: {t_g:.4f} ms), "
+            f"plain version {t_p:.4f} ms, F.multi_head_attention_forward {t_l:.4f} ms "
+            f"(max|d| vs kernel {lib_d:.2e}), bound {t_b:.4f} ms ({by}), {t_b / t_k:.1%} of the bound, "
+            f"L2 weight bytes {p['weight_bytes'] / 1e6:.1f} MB a call, cluster {p['cluster']} "
+            f"split {p['split']} ({p['heads_per_block']} heads a block); SRAttention kernel path "
             f"{t_mk:.4f} ms, plain path {t_mp:.4f} ms")
         for key, v in zip(tot, (t_k, t_p, t_l)):
             tot[key] += blocks * v
@@ -378,6 +407,7 @@ def _fused_kernel_phase(name, mod, fn, ref, make_inputs, stages, cost, module_pa
         a = [t.to(torch.bfloat16) for t in make_inputs(np.random.default_rng(stage), 8, hw, hw, c)]
         with torch.inference_mode():
             t_k = device_ms(lambda: fn(*a))
+            t_g = graph_ms(lambda: fn(*a))
             t_p = device_ms(lambda: ref(*a))
         costs.append((cost(8, hw, hw, c), blocks))
         t_b, by = stage_bound(costs[-1][0])
@@ -393,7 +423,11 @@ def _fused_kernel_phase(name, mod, fn, ref, make_inputs, stages, cost, module_pa
             p = plan(8, hw, hw, c)
             extra = (f", {t_b / t_k:.1%} of the bound, L2 weight bytes {p['weight_bytes'] / 1e6:.1f} MB "
                      f"a call, cluster {p['cluster']}")
-        log(f"[kernel] {name} stage {stage} bf16 B=8 {hw}x{hw} C={c}: kernel {t_k:.4f} ms, "
+            if "split" in p:
+                th, tw = p["tile"]
+                extra += f" split {p['split']}, tile {th}x{tw}"
+        log(f"[kernel] {name} stage {stage} bf16 B=8 {hw}x{hw} C={c}: kernel {t_k:.4f} ms "
+            f"(from a CUDA graph: {t_g:.4f} ms), "
             f"plain version {t_p:.4f} ms, bound {t_b:.4f} ms ({by}){extra}; module fused path "
             f"{t_mk:.4f} ms, unfused path {t_mp:.4f} ms")
         for key, v in zip(tot, (t_k, t_p)):
@@ -692,6 +726,9 @@ def kernel_phase(sd, sd_cls) -> dict:
             "mixffn", mf, mf.mixffn, mf.mixffn_reference, _ffn_inputs, FFN_STAGES,
             roofline.mixffn_cost,
             lambda c, fused: MixFFN(c, 4 * c, fused=fused),
+            extra_cases=[(1, 7, 7, 512), (2, 9, 5, 640), (5, 7, 11, 384), (2, 9, 10, 128),
+                         (2, 9, 5, 704)],
+            plan=lambda b, h, w, c: mf.launch_plan(b, h, w, c, torch.device("cuda")),
         ),
         "convnext_block": _fused_kernel_phase(
             "convnext_block", cb, cb.convnext_block, cb.convnext_block_reference, _cnx_inputs,
@@ -1047,5 +1084,117 @@ def main() -> int:
     return 0
 
 
+# csrc/*.cu's PF_STAMP ids: (id, name); PF_STAMP_STEP(i, j) is i + 10 j
+PHASE_NAMES = {
+    "fused_attention": {0: "start", 1: "x", 90: "heads done", 91: "gather of o",
+                        **{i + 10 * j: f"{name} {j}" for j in range(8) for i, name in (
+                            (2, "q (head start)"), (3, "K/V staged"), (4, "logits"), (5, "softmax"),
+                            (9, "P.V issued"), (6, "P.V"), (7, "out projection tile"))}},
+    "mixffn": {0: "start", 1: "x", 2: "fc1(0) and mask", 96: "drain", 97: "partials written",
+               **{i + 10 * j: f"{name} {j}" for j in range(8) for i, name in (
+                   (3, "fc1 issue"), (4, "taps"), (6, "fc2 issue"), (5, "mask"))}},
+}
+
+
+def _bf16(tensors):
+    return [t.to(torch.bfloat16) for t in tensors]
+
+
+def phases_main() -> int:
+    """Per-phase clock64() counts of the bf16 attention and MixFFN kernels,
+    then each launch's device time from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    probe()
+    device = torch.device("cuda")
+    libs = {name: kbuild.library(name, mod._SIGNATURES, ("PF_PHASES",))
+            for name, mod in (("fused_attention", fa), ("mixffn", mf))}
+    for lib in libs.values():
+        lib.pf_read_clk.argtypes = [ctypes.c_void_p]
+    calls = {}
+    for stage, (n, c, heads, _) in STAGES.items():
+        a = _bf16(_attn_inputs(np.random.default_rng(stage), 8, n, 100, c))
+        p = fa.launch_plan(8, n, c, heads, 100, device)
+        calls[f"fused_attention stage {stage} (cluster {p['cluster']} split {p['split']})"] = (
+            "fused_attention", lambda lib, a=a, h=heads, p=p: fa.launch(
+                *a, h, 0.125, None, p["cluster"], p["split"], p["stages"], lib=lib))
+    for stage, (hw, c, _) in FFN_STAGES.items():
+        a = _bf16(_ffn_inputs(np.random.default_rng(stage), 8, hw, hw, c))
+        p = mf.launch_plan(8, hw, hw, c, device)
+        th, tw = p["tile"]
+        calls[f"mixffn stage {stage} (tile {th}x{tw} cluster {p['cluster']} split {p['split']})"] = (
+            "mixffn", lambda lib, a=a, p=p: mf.launch(
+                *a, *p["tile"], p["cluster"], p["split"], p["stages"], lib=lib))
+    log(f"[clk] {torch.cuda.get_device_name(0)} ({card_line()}); cycles of thread 0 of block 0, "
+        "second of two calls, each phase since the one before")
+    buf = np.zeros(256, np.int64)
+    for tag, (name, call) in calls.items():
+        for _ in range(2):  # the first call's stamps are cleared by the read
+            call(libs[name])
+            torch.cuda.synchronize()
+            err = libs[name].pf_read_clk(buf.ctypes.data)
+            if err:
+                raise RuntimeError(f"reading the stamps failed ({err})")
+        seen = sorted((int(buf[i]), PHASE_NAMES[name].get(i, str(i))) for i in range(256) if buf[i])
+        parts = [f"{nm} {t - prev}" for (prev, _), (t, nm) in zip(seen, seen[1:])]
+        log(f"[clk] {tag}: {seen[-1][0] - seen[0][0]} cycles from {seen[0][1]}: " + ", ".join(parts))
+    for tag, (name, call) in calls.items():
+        for _ in range(3):
+            call(None)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                call(None)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_time_total > 0:
+                kernel = re.search(r"(\w+)[<(]", e.key.split("::")[-1])
+                log(f"[prof] {tag}: {kernel.group(1) if kernel else e.key[:40]} "
+                    f"{e.device_time_total / e.count:.2f} us a call")
+    return 0
+
+
+def host_probe_main(root: str) -> int:
+    """The host's cost of one call of the bf16 attention and MixFFN wrappers
+    of the package under ``root``: the wall time of issuing 200 calls back
+    to back (the card still busy with the earlier ones, so the host never
+    waits on it), beside the device time per call back to back and from a
+    CUDA graph."""
+    probe()
+    root = str(Path(root).resolve())
+    sys.path.insert(0, root)
+    for name in [m for m in sys.modules if m.startswith("perspectivefields_tpu_torch")]:
+        del sys.modules[name]
+    pfa = importlib.import_module("perspectivefields_tpu_torch.kernels.fused_attention")
+    pmf = importlib.import_module("perspectivefields_tpu_torch.kernels.mixffn")
+    if not pfa.__file__.startswith(root):
+        raise RuntimeError(f"imported {pfa.__file__}, not the package under {root}")
+    cases = []
+    for stage, (n, c, heads, _) in STAGES.items():
+        a = _bf16(_attn_inputs(np.random.default_rng(stage), 8, n, 100, c))
+        cases.append((f"fused_attention stage {stage}", lambda a=a, h=heads: pfa.fused_attention(*a, h, 0.125)))
+    for stage, (hw, c, _) in FFN_STAGES.items():
+        a = _bf16(_ffn_inputs(np.random.default_rng(stage), 8, hw, hw, c))
+        cases.append((f"mixffn stage {stage}", lambda a=a: pmf.mixffn(*a)))
+    calls = 200
+    with torch.inference_mode():
+        for tag, fn in cases:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            issue_ms = (time.perf_counter() - t0) * 1e3 / calls
+            torch.cuda.synchronize()
+            log(f"[host] {tag} ({root}, {card_line()}): host {issue_ms:.4f} ms to issue a call, "
+                f"device {device_ms(fn):.4f} ms a call back to back, {graph_ms(fn):.4f} ms from a CUDA graph")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phases"]:
+        sys.exit(phases_main())
+    if sys.argv[1:2] == ["--host-probe"]:
+        sys.exit(host_probe_main(sys.argv[2] if len(sys.argv) > 2 else "."))
     sys.exit(main())

@@ -12,7 +12,9 @@ Outputs are numpy, channels-last unless ``channels_first=True``.
 from __future__ import annotations
 
 import os
+import pickle
 import warnings
+import zipfile
 from collections.abc import Mapping, Sequence
 
 import numpy as np
@@ -21,7 +23,7 @@ import torch
 from .config import ModelConfig, model_zoo
 
 from . import native
-from .checkpoint import load_into, load_released, state_dict_from_jax
+from .checkpoint import load_into, load_npz, load_released, state_dict_from_jax
 from .models import PersNet
 from .models.common import init_random_
 from .ops.image import resize_bilinear
@@ -32,6 +34,20 @@ _WEIGHTS_DIR = os.path.join(
     "perspectivefields_tpu", "weights",
 )
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# Errors that mean "this weights file is malformed" (truncated, wrong
+# format): the only ones for which a cached file is renamed ``.corrupt``.
+# Environmental failures (MemoryError, OSError) propagate, so a valid file
+# is never quarantined over a transient problem. A copy of
+# perspectivefields_tpu/api.py:_PARSE_ERRORS.
+_PARSE_ERRORS = (
+    KeyError,
+    ValueError,
+    RuntimeError,
+    EOFError,
+    zipfile.BadZipFile,
+    pickle.UnpicklingError,
+)
 
 
 def _resolve_device(device) -> torch.device:
@@ -45,15 +61,27 @@ def _resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+def _load_file(model: PersNet, path: str) -> None:
+    """A JAX ``.npz`` (strict: every name) or a released ``.pth`` (the
+    reference's strict=False rule) into ``model``."""
+    if path.endswith(".npz"):
+        model.load_state_dict(load_npz(path), strict=True)
+    else:
+        load_into(model, load_released(path))
+
+
 class PerspectiveFields:
     """Single-image camera calibration model.
 
     Args:
         version: a ``model_zoo`` key, or "custom" with ``config``.
-        params: None (a released ``<version>.pth`` in
-            perspectivefields_tpu/weights/ if present, else seeded random
-            weights with a warning), a path to a released ``.pth``, a JAX
-            param tree ({"params": ...}), or a torch state dict.
+        params: None (in perspectivefields_tpu/weights/, a JAX
+            ``<version>.npz`` if present, then a released ``<version>.pth``;
+            a cached file that fails to parse is renamed ``.corrupt`` with
+            a warning and the next one is tried; else seeded random weights
+            with a warning), a path to a JAX ``.npz`` or a released
+            ``.pth`` (not guarded), a JAX param tree ({"params": ...}), or
+            a torch state dict.
         compute_dtype: "float32" or "bfloat16"; bfloat16 stores the weights
             in bfloat16, as the JAX package's serving form does.
         device: torch device; None means "cuda" and raises without one.
@@ -113,18 +141,40 @@ class PerspectiveFields:
 
     def _load_params(self, model: PersNet, params) -> None:
         if params is None:
-            released = os.path.join(_WEIGHTS_DIR, f"{self.version}.pth")
-            if os.path.exists(released):
-                load_into(model, load_released(released))
-                return
+            # JAX's order (perspectivefields_tpu/api.py:_init_params): the
+            # converted .npz, then a side-loaded .pth. A corrupt cached file
+            # must not brick the constructor: warn, quarantine, fall through.
+            for cand in (
+                os.path.join(_WEIGHTS_DIR, f"{self.version}.npz"),
+                os.path.join(_WEIGHTS_DIR, f"{self.version}.pth"),
+            ):
+                if not os.path.exists(cand):
+                    continue
+                saved = {k: v.clone() for k, v in model.state_dict().items()}
+                try:
+                    _load_file(model, cand)
+                    return
+                except _PARSE_ERRORS as exc:
+                    model.load_state_dict(saved)  # undo a partial load
+                    quarantined = cand + ".corrupt"
+                    try:
+                        os.replace(cand, quarantined)
+                    except OSError:
+                        quarantined = cand
+                    warnings.warn(
+                        f"cached weights {cand} failed to load ({exc!r}); "
+                        f"moved to {quarantined} and continuing",
+                        stacklevel=3,
+                    )
             warnings.warn(
-                f"No weights found for {self.version!r} (looked for {released}); "
-                "using seeded random initialization — fields will be meaningless.",
+                f"No weights found for {self.version!r} (looked in {_WEIGHTS_DIR} for "
+                f"{self.version}.npz and .pth); using seeded random initialization — "
+                "fields will be meaningless.",
                 stacklevel=3,
             )
             init_random_(model, seed=0)
         elif isinstance(params, (str, os.PathLike)):
-            load_into(model, load_released(params))
+            _load_file(model, str(params))
         elif isinstance(params, Mapping) and "params" in params:
             model.load_state_dict(state_dict_from_jax(params), strict=True)
         else:
@@ -164,14 +214,21 @@ class PerspectiveFields:
         return resize_bilinear(x, h, w).numpy()
 
     def inference(self, img_bgr: np.ndarray, channels_first: bool = False) -> dict:
-        """Fields (+ camera parameters) for one BGR image (HWC uint8)."""
+        """Fields (+ camera parameters) for one BGR image (HWC uint8).
+
+        Every output array is float32 numpy in every compute dtype: in
+        bfloat16 the network-size fields (``pred_gravity``,
+        ``pred_latitude``) and the camera parameters are upcast, where the
+        JAX package returns them as bfloat16; the ``_original`` fields are
+        float32 in both."""
         return self.inference_batch([img_bgr], channels_first)[0]
 
     def inference_batch(
         self, img_bgr_list: Sequence[np.ndarray], channels_first: bool = False
     ) -> list[dict]:
         """Batched inference; images may have mixed sizes (postprocess is
-        grouped by original size)."""
+        grouped by original size). Outputs are float32 numpy in every
+        compute dtype, as ``inference`` says."""
         first = img_bgr_list[0]
         uniform_u8 = all(
             img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3

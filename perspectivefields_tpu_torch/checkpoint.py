@@ -7,7 +7,9 @@ below are the port's copies of the ones in
 perspectivefields_tpu/checkpoint/torch_convert.py (``map_torch_name`` and
 its ``_map_*`` helpers; ``flax_to_torch_names`` and its helpers), since the
 port imports nothing of the JAX package; tests/test_torch_api.py holds them
-equal.
+equal. ``_unflatten`` is the port's copy of
+perspectivefields_tpu/checkpoint/io.py's, so a JAX ``.npz`` (the flat file
+its ``save_params`` writes) loads with numpy alone (``load_npz``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import os
 import re
 import warnings
+import zipfile
 
 import numpy as np
 import torch
@@ -236,11 +239,37 @@ def state_dict_from_jax(params) -> dict[str, torch.Tensor]:
     }
 
 
+def _unflatten(flat: dict) -> dict:
+    """A flat {"a/b/c": array} dict -> the nested tree (JAX:
+    checkpoint/io.py:_unflatten)."""
+    tree: dict = {}
+    for key, v in flat.items():
+        parts = key.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def load_npz(path: str | os.PathLike) -> dict[str, torch.Tensor]:
+    """Read a JAX param tree saved as a flat ``.npz`` (JAX:
+    checkpoint/io.py:save_params) into a float32 torch state dict, with
+    numpy alone."""
+    with np.load(path) as z:
+        return state_dict_from_jax(_unflatten({k: z[k] for k in z.files}))
+
+
 def load_released(path: str | os.PathLike) -> dict[str, torch.Tensor]:
     """Read a released reference checkpoint: the ``{"model": ...}``
     envelope, ``weights_only=True``. As the reference's strict=False load
     (and checkpoint/torch_convert.py:214-225), keys the model does not have
-    are skipped with a warning; BN counters and pixel_mean/std are dropped."""
+    are skipped with a warning; BN counters and pixel_mean/std are dropped.
+    A zip archive's directory is read first, so a truncated file raises
+    zipfile.BadZipFile (torch.load raises OSError for it)."""
+    with open(path, "rb") as f:
+        if f.read(2) == b"PK":
+            zipfile.ZipFile(f).close()
     blob = torch.load(path, map_location="cpu", weights_only=True)
     sd = blob.get("model", blob)
     kept, skipped = {}, []

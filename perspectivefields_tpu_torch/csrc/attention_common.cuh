@@ -1,7 +1,7 @@
 // Device code shared by the attention kernels (fused_attention.cu,
 // stage1_attention.cu, fused_block.cu): the K/V projection into a scratch
-// tensor (their first launch), the f32 scalar-FMA projection tiles, the
-// bf16 WMMA projection tiles and the row softmax.
+// tensor (their first launch; fused_attention.cu's bf16 path has its own on
+// wgmma), the f32 scalar-FMA projection tiles and the row softmax.
 //
 // float32 sums every product as one FMA chain over k in order, and the
 // softmax reduces each row in one warp's order, so the f32 kernels round as
@@ -148,30 +148,9 @@ __device__ __forceinline__ void softmax_rows_f32(float* s, int rows) {
 
 constexpr int kTcThreads = 256;          // 8 warps
 constexpr int kTcWarps = kTcThreads / 32;
-constexpr int kHdLd = kHeadDim + kPad;   // rows of the K_h / V_h tiles
 constexpr int kPLd = kMaxM + kPad;       // rows of p
 constexpr int kSLd = kMaxM + 4;          // rows of the f32 logits
 constexpr int kKvK = 64;                 // K depth staged per step (kv proj)
-
-// acc[i] = A[16i:16i+16, 0:K] . W[n0:n0+16, 0:K]^T for i = 0, 1, with A a
-// 32-row bf16 tile in shared memory (ld lda) and W (out, in) row-major with
-// ld ldw (global or shared memory): W read as a column-major B operand.
-__device__ __forceinline__ void proj_tiles(FragC (&acc)[2], const bf16* a,
-                                           int lda, const bf16* __restrict__ w,
-                                           int ldw, int K, int n0) {
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-#pragma unroll 4
-  for (int k = 0; k < K; k += 16) {  // K % 64 == 0
-    FragBCol bw;
-    wmma::load_matrix_sync(bw, w + (size_t)n0 * ldw + k, ldw);
-    FragA a0, a1;
-    wmma::load_matrix_sync(a0, a + k, lda);
-    wmma::load_matrix_sync(a1, a + 16 * lda + k, lda);
-    wmma::mma_sync(acc[0], a0, bw, acc[0]);
-    wmma::mma_sync(acc[1], a1, bw, acc[1]);
-  }
-}
 
 // out[R, J] = bf16(a[R, K] . w[J, K]^T + bias); a block per 32 x 128 tile,
 // one 16-column strip per warp.

@@ -603,7 +603,7 @@ int launch_bf16(const void* x, const void* dwk, const void* dwb, const void* lns
   const int tiles = B * ((H * W + kTok - 1) / kTok);
   const size_t smem = CnxLayout(C, H, W, cc, pc, stages).bytes();
   return launch_cluster(bf16_kernel(pc), dim3(tiles * cluster), kHopperThreads, smem, cluster,
-                        st, m1, m2, static_cast<const bf16*>(x), static_cast<const bf16*>(dwk),
+                        st, false, m1, m2, static_cast<const bf16*>(x), static_cast<const bf16*>(dwk),
                         static_cast<const bf16*>(dwb), static_cast<const bf16*>(lns),
                         static_cast<const bf16*>(lnb), static_cast<const bf16*>(b1),
                         static_cast<const bf16*>(b2), static_cast<const bf16*>(gamma),

@@ -781,7 +781,7 @@ int launch_bf16(const void* ln1x, const void* kv_in, const void* res, const void
   const int tiles = B * ((H + th - 1) / th) * ((W + tw - 1) / tw);
   const int grid = (tiles + cluster - 1) / cluster * cluster;
   return launch_cluster(bf16_kernel(C), dim3(grid), kHopperThreads, BlockLayout(C, stages).bytes(),
-                        cluster, stream, mq, mp, m1, m2, static_cast<const bf16*>(ln1x),
+                        cluster, stream, false, mq, mp, m1, m2, static_cast<const bf16*>(ln1x),
                         static_cast<const bf16*>(kv_scratch), static_cast<const bf16*>(res),
                         static_cast<const bf16*>(bq), static_cast<const bf16*>(bp),
                         static_cast<const bf16*>(lns), static_cast<const bf16*>(lnb),

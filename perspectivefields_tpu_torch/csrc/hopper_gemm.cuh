@@ -1,5 +1,6 @@
-// The Hopper GEMM building block of the bf16 ConvNeXt-block (convnext_block.cu)
-// and whole-MiT-block (fused_block.cu) kernels: warpgroup MMAs (wgmma) with
+// The Hopper GEMM building block of the bf16 ConvNeXt-block (convnext_block.cu),
+// whole-MiT-block (fused_block.cu), MixFFN (mixffn.cu) and attention
+// (fused_attention.cu) kernels: warpgroup MMAs (wgmma) with
 // f32 accumulators in registers, operands in 64-byte-swizzled shared memory,
 // and a ring of weight tiles that one producer thread fills by TMA, each
 // stage behind a "full" and an "empty" mbarrier. In a thread-block cluster
@@ -24,6 +25,8 @@
 #include <cuda.h>  // CUtensorMap and its enums only: cuTensorMapEncodeTiled is looked up at run time
 #include <stdint.h>
 
+#include <mutex>
+
 #include "common.cuh"
 
 namespace {
@@ -34,6 +37,30 @@ constexpr int kConsumerThreads = 256;                   // two consumer warpgrou
 constexpr int kHopperThreads = kConsumerThreads + 128;  // + the producer warpgroup
 constexpr int kKb = 32;                                 // bf16 columns of a k-block
 constexpr int kStageBytes = 16384;                      // one ring stage
+
+// Per-phase clock64() stamps for measuring a kernel's phases (chip_smoke.py
+// --phases, which names the ids): built with -DPF_PHASES, PF_STAMP(i) has
+// thread 0 of block 0 write clock64() into pf_clk[i], and PF_STAMP_STEP(i,
+// j) stamps loop step j < 8 at i + 10 j; pf_read_clk copies them out. In
+// every other build they compile to nothing.
+#ifdef PF_PHASES
+__device__ long long pf_clk[256];
+#define PF_STAMP(i)                                                          \
+  do {                                                                       \
+    if (threadIdx.x == 0 && blockIdx.x == 0) pf_clk[i] = clock64();          \
+  } while (0)
+#define PF_STAMP_STEP(i, j)                                                  \
+  do {                                                                       \
+    if ((j) < 8) PF_STAMP((i) + 10 * (j));                                   \
+  } while (0)
+#else
+#define PF_STAMP(i) \
+  do {              \
+  } while (0)
+#define PF_STAMP_STEP(i, j) \
+  do {                      \
+  } while (0)
+#endif
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -77,6 +104,9 @@ __device__ __forceinline__ void wg_wait0() {
 }
 __device__ __forceinline__ void wg_wait1() {
   asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait2() {
+  asm volatile("wgmma.wait_group.sync.aligned 2;\n" ::: "memory");
 }
 // Keep the compiler from moving accumulator reads/writes across the async MMAs.
 template <int N>
@@ -230,6 +260,14 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumerThreads) : "memory");
 }
 
+// Programmatic dependent launch: let the stream's next kernel start
+// (grid_launch_dependents), or wait until the previous kernel has finished
+// and its writes are visible (grid_wait; a no-op without such a launch).
+__device__ __forceinline__ void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
 // Bring a tensor map into the TMA unit's cache ahead of its first load.
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
@@ -255,6 +293,27 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
   }
 }
 
+// The f32 sum, in rank order, of the float4 at ``off`` floats into the
+// buffer ``buf`` of each of the S blocks of the cluster (distributed shared
+// memory): all S loads are issued before the first add.
+__device__ __forceinline__ float4 cluster_sum4(const cg::cluster_group& cluster, float* buf,
+                                               int off, int S) {
+  float4 v[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    if (r < S) v[r] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(buf, r) + off);
+  float4 sum = v[0];
+#pragma unroll
+  for (int r = 1; r < 8; ++r)
+    if (r < S) {
+      sum.x += v[r].x;
+      sum.y += v[r].y;
+      sum.z += v[r].z;
+      sum.w += v[r].w;
+    }
+  return sum;
+}
+
 // ---------------------------------------------------------------------------
 // The weight ring
 // ---------------------------------------------------------------------------
@@ -270,15 +329,17 @@ struct WTile {
 
 // Both sides walk the same sequence of tiles. ``stages`` stages of
 // kStageBytes from ``data``; full[s] and empty[s] for each. Consumers keep
-// one stage's MMAs in flight: ``retire`` releases the stage before.
+// one stage's MMAs in flight (``retire`` releases the stage before) or, with
+// ``retire2`` and at least 3 stages, two.
 struct Ring {
   unsigned char* data;
   uint64_t* full;
   uint64_t* empty;
-  int stages, stage, phase, pending;
+  int stages, stage, phase, pending, pending2;
 
   __device__ Ring(unsigned char* d, uint64_t* bars, int n)
-      : data(d), full(bars), empty(bars + n), stages(n), stage(0), phase(0), pending(-1) {}
+      : data(d), full(bars), empty(bars + n), stages(n), stage(0), phase(0), pending(-1),
+        pending2(-1) {}
 
   // Every thread of the block, once, before the cluster's first sync: each
   // stage's empty barrier counts the 2 consumer warpgroups of every block.
@@ -345,12 +406,29 @@ struct Ring {
     advance();
   }
 
-  // Consumers: wait for every MMA and release the last stage. Call before
-  // reading the accumulators or rewriting a register A operand.
+  // Consumers, every thread, after committing this stage's MMAs: keep this
+  // stage's and the last one's in flight, release the stage before them
+  // (as ``retire`` with fewer than 3 stages: a consumer waiting on a stage
+  // it holds would wait forever). The MMAs complete in order.
+  __device__ void retire2(int cluster) {
+    if (stages < 3) {
+      retire(cluster);
+      return;
+    }
+    wg_wait2();
+    if (pending2 >= 0) release(pending2, cluster);
+    pending2 = pending;
+    pending = stage;
+    advance();
+  }
+
+  // Consumers: wait for every MMA and release the stages still held. Call
+  // before reading the accumulators or rewriting a register A operand.
   __device__ void drain(int cluster) {
     wg_wait0();
+    if (pending2 >= 0) release(pending2, cluster);
     if (pending >= 0) release(pending, cluster);
-    pending = -1;
+    pending = pending2 = -1;
   }
 };
 
@@ -384,8 +462,27 @@ inline EncodeTiledFn encode_tiled() {
 
 // A tensor map of a row-major (rows, cols) bf16 matrix whose box is 32
 // columns x box_rows rows, 64-byte swizzle, zeros past the edges. Returns a
-// cudaError_t (cudaErrorInvalidValue if the encoding is refused).
+// cudaError_t (cudaErrorInvalidValue if the encoding is refused). A map
+// depends only on these four values, so the last 64 encoded are kept and
+// reused: encoding on every launch added to the attention kernel's host
+// launch cost, which at the flagship's B=8 is about its device time.
 inline int make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  struct Entry {
+    CUtensorMap map;
+    const void* ptr;
+    int rows, cols, box_rows;
+  };
+  static Entry cache[64];
+  static int count = 0, next = 0;
+  static std::mutex mutex;
+  std::lock_guard<std::mutex> lock(mutex);
+  for (int i = 0; i < count; ++i) {
+    const Entry& e = cache[i];
+    if (e.ptr == ptr && e.rows == rows && e.cols == cols && e.box_rows == box_rows) {
+      *map = e.map;
+      return 0;
+    }
+  }
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
@@ -396,31 +493,67 @@ inline int make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int b
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  cache[next] = {*map, ptr, rows, cols, box_rows};
+  next = (next + 1) % 64;
+  if (count < 64) ++count;
+  return 0;
+}
+
+// Set ``kernel``'s dynamic shared-memory size to ``smem`` unless that is
+// the size last set for it on this device. The size must equal the
+// launch's own: a cluster launch after a larger size was set failed with
+// "invalid argument". Skipping the call where nothing changes takes it off
+// every launch's host path.
+inline cudaError_t set_dynamic_smem(const void* kernel, size_t smem) {
+  struct Entry {
+    const void* kernel;
+    int device, smem;
+  };
+  static Entry cache[64];
+  static int count = 0;
+  static std::mutex mutex;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mutex);
+  Entry* e = nullptr;
+  for (int i = 0; i < count && e == nullptr; ++i)
+    if (cache[i].kernel == kernel && cache[i].device == device) e = &cache[i];
+  if (e != nullptr && e->smem == (int)smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (e == nullptr && count < 64) e = &cache[count++];
+  if (e != nullptr) *e = {kernel, device, (int)smem};
+  return cudaSuccess;
 }
 
 // Launch ``kernel`` with ``cluster`` blocks per cluster along x (grid.x a
 // multiple of it, at most 8: the portable size); a size the card refuses
 // (shared memory, cluster size) is returned as an error, never retried
-// smaller.
+// smaller. With ``after_previous`` (programmatic dependent launch) the
+// kernel may start while the stream's previous kernel runs, once that one
+// has called grid_launch_dependents; it must call grid_wait before reading
+// anything the previous kernel writes.
 template <typename... Params, typename... Args>
 int launch_cluster(void (*kernel)(Params...), dim3 grid, int threads, size_t smem, int cluster,
-                   cudaStream_t stream, Args... args) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                   cudaStream_t stream, bool after_previous, Args... args) {
+  cudaError_t err = set_dynamic_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = after_previous ? 2 : 1;
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -430,9 +563,7 @@ int launch_cluster(void (*kernel)(Params...), dim3 grid, int threads, size_t sme
 // once (0 if none fits).
 template <typename... Params>
 int max_clusters(void (*kernel)(Params...), int threads, size_t smem, int cluster) {
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
-      cudaSuccess)
-    return 0;
+  if (set_dynamic_smem(reinterpret_cast<const void*>(kernel), smem) != cudaSuccess) return 0;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster);
   cfg.blockDim = dim3(threads);
@@ -546,10 +677,21 @@ inline int launch_gemm_core(const void* a, const void* w, void* out, int M, int 
   const dim3 grid((M + 63) / 64);
   const size_t smem = gemm_core_smem(K);
   if (mode == 0)
-    return launch_cluster(gemm_core<0>, grid, kHopperThreads, smem, 1, stream, map,
+    return launch_cluster(gemm_core<0>, grid, kHopperThreads, smem, 1, stream, false, map,
                           static_cast<const bf16*>(a), static_cast<float*>(out), M, N, K);
-  return launch_cluster(gemm_core<1>, grid, kHopperThreads, smem, 1, stream, map,
+  return launch_cluster(gemm_core<1>, grid, kHopperThreads, smem, 1, stream, false, map,
                         static_cast<const bf16*>(a), static_cast<float*>(out), M, N, K);
 }
 
 }  // namespace
+
+#ifdef PF_PHASES
+// The stamps of the last launch (256 clock64() values, 0 where none was
+// written), cleared for the next one.
+extern "C" int pf_read_clk(long long* host) {
+  static long long zeros[256] = {0};
+  const cudaError_t err = cudaMemcpyFromSymbol(host, pf_clk, sizeof(pf_clk));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemcpyToSymbol(pf_clk, zeros, sizeof(pf_clk));
+}
+#endif

@@ -37,21 +37,24 @@ def find_nvcc() -> str | None:
     return str(cand) if cand.is_file() else None
 
 
-def _digest(src: Path) -> str:
+def _digest(src: Path, flags: tuple) -> str:
     h = hashlib.sha256()
     for path in [src, *sorted(CSRC.glob("*.cuh"))]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
-def build(name: str) -> Path:
+def build(name: str, defines: tuple = ()) -> Path:
     """Compile ``csrc/<name>.cu`` (if not already built) and return the
     library's path. ptxas's register/shared-memory report is kept beside it
-    as ``<lib>.log``."""
+    as ``<lib>.log``. ``defines``: macros set for this build (``PF_PHASES``
+    turns on csrc/hopper_gemm.cuh's phase stamps), kept apart from the
+    plain build."""
     src = CSRC / f"{name}.cu"
-    lib = BUILD_DIR / f"lib{name}-{_digest(src)}.so"
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    lib = BUILD_DIR / f"lib{name}{''.join('-' + d for d in defines)}-{_digest(src, flags)}.so"
     if lib.exists():
         return lib
     nvcc = find_nvcc()
@@ -63,7 +66,7 @@ def build(name: str) -> Path:
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [nvcc, *flags, "-o", str(tmp), str(src)],
         capture_output=True, text=True, check=False,
     )
     if proc.returncode != 0:
@@ -76,25 +79,25 @@ def build(name: str) -> Path:
     return lib
 
 
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple, ctypes.CDLL] = {}
 _libs_lock = threading.Lock()
 
 
-def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu`` once per process.
-    ``signatures`` maps each C function to its ctypes argtypes; every one
-    returns an int (a cudaError_t, or a count). ``pf_cuda_error_string``,
-    which every source exports, is bound too."""
+def library(name: str, signatures: dict[str, list], defines: tuple = ()) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu`` with ``defines`` once
+    per process. ``signatures`` maps each C function to its ctypes
+    argtypes; every one returns an int (a cudaError_t, or a count).
+    ``pf_cuda_error_string``, which every source exports, is bound too."""
     with _libs_lock:
-        lib = _libs.get(name)
+        lib = _libs.get((name, defines))
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+            lib = ctypes.CDLL(str(build(name, defines)))
             for fn, argtypes in signatures.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
             lib.pf_cuda_error_string.argtypes = [ctypes.c_int]
             lib.pf_cuda_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
+            _libs[name, defines] = lib
         return lib
 
 

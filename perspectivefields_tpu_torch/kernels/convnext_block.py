@@ -29,8 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.activations import gelu_f32
+from . import hopper_plan as hp
 from .build import library, raise_on_error
-from .mixffn import sm_count
+from .hopper_plan import CLUSTERS, MAX_STAGES, SMEM_LIMIT, STAGE_BYTES  # noqa: F401 (re-exported)
 
 # Launches of the CUDA kernel since the last reset (a plain counter: a run
 # sets it to 0 and reads it back to show the main path went through here).
@@ -38,14 +39,11 @@ LAUNCHES = 0
 
 # csrc/convnext_block.cu's limits and shared-memory layout: the float32
 # kernel's kMaxTokens and smem_f32; the bf16 kernel's 64-token tiles,
-# 384-column passes, ring stages (hopper_gemm.cuh) and CnxLayout
+# 384-column passes, ring stages (hopper_gemm.cuh; hopper_plan.py) and
+# CnxLayout
 MAX_TOKENS = 64
-SMEM_LIMIT = 232448  # bytes of shared memory a block may use on the H100
 TOKENS = 64
 PASS_COLS = 384
-STAGE_BYTES = 16384
-MAX_STAGES = 6
-CLUSTERS = (8, 4, 2, 1)
 CONSUMER_THREADS = 256
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -116,7 +114,7 @@ def plan(b: int, h: int, w: int, c: int, sms: int = 132, fits: tuple = ()) -> di
     of W2 once."""
     tiles = b * -(-h * w // TOKENS)
     chunks = 4 * c // 64
-    fit = dict(fits).get if fits else (lambda k, sms=sms: sms // k)
+    fit = hp.fit_counts(fits, sms)
     cluster = next(s for s in CLUSTERS
                    if s == 1 or (tiles <= fit(s) and s <= chunks and c % (8 * s) == 0))
     # each block of the cluster convolves c / cluster channels; the conv's
@@ -132,8 +130,7 @@ def plan(b: int, h: int, w: int, c: int, sms: int = 132, fits: tuple = ()) -> di
             for cc in options:
                 if smem_bytes(c, h, w, cc, pc, min_stages) > SMEM_LIMIT:
                     continue
-                stages = max(s for s in range(min_stages, MAX_STAGES + 1)
-                             if smem_bytes(c, h, w, cc, pc, s) <= SMEM_LIMIT)
+                stages = hp.ring_stages(lambda s: smem_bytes(c, h, w, cc, pc, s), min_stages)
                 passes = -(-c // pc)
                 weight_bytes = tiles * (passes * 4 * c * c + 4 * c * c) * 2
                 return dict(tokens=TOKENS, cluster=cluster, cc=cc, pc=pc, stages=stages,
@@ -217,13 +214,13 @@ def clusters_fit(c: int, h: int, w: int, cc: int, pc: int, stages: int, cluster:
     return _library().pf_convnext_block_max_clusters(c, h, w, cc, pc, stages, cluster)
 
 
+@functools.lru_cache(maxsize=None)
 def launch_plan(b: int, h: int, w: int, c: int, device: torch.device) -> dict:
     """The bf16 plan the wrapper launches on ``device``: ``plan`` with the
     card's own count of the clusters it runs at once (needs the card)."""
-    sms = sm_count(device)
-    p = plan(b, h, w, c, sms)
-    fits = tuple((k, clusters_fit(c, h, w, p["cc"], p["pc"], p["stages"], k)) for k in CLUSTERS)
-    return plan(b, h, w, c, sms, fits)
+    return hp.launch_plan(lambda sms, fits: plan(b, h, w, c, sms, fits),
+                          lambda p, k: clusters_fit(c, h, w, p["cc"], p["pc"], p["stages"], k),
+                          device)
 
 
 def gemm_core(a: torch.Tensor, w: torch.Tensor, mode: int = 0, lib=None) -> torch.Tensor:

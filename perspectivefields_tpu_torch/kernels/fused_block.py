@@ -28,8 +28,10 @@ import torch
 import torch.nn.functional as F
 
 from . import fused_attention as fa
+from . import hopper_plan as hp
 from . import mixffn as mf
 from .build import library, raise_on_error
+from .hopper_plan import CLUSTERS, MAX_STAGES, SMEM_LIMIT, STAGE_BYTES  # noqa: F401 (re-exported)
 
 # Launches of the CUDA kernel since the last reset (a plain counter: a run
 # sets it to 0 and reads it back to show the main path went through here).
@@ -41,12 +43,8 @@ LAUNCHES = 0
 SUB_ROWS = 32
 MAX_KEYS = fa.MAX_KEYS
 MAX_HALO = mf.MAX_HALO
-SMEM_LIMIT = mf.SMEM_LIMIT
 ROWS_BF16 = 64  # the bf16 kernel's halo tokens: wgmma's M
 MAX_WIDTH_BF16 = 640  # the bf16 kernel's widest C (kMaxCB): two 64 x C operands fit
-STAGE_BYTES = 16384
-MAX_STAGES = 6
-CLUSTERS = (8, 4, 2, 1)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
@@ -201,14 +199,8 @@ def plan(b: int, h: int, w: int, c: int, heads: int, sms: int = 132, fits: tuple
             if best is None or key < best[0]:
                 best = (key, th, tw, blocks)
     _, th, tw, tiles = best
-    fit = dict(fits).get if fits else (lambda k, sms=sms: sms // k)
-
-    def waves(k):
-        return -(-(-(-tiles // k)) // max(1, fit(k)))
-
-    cluster = next(k for k in CLUSTERS if k == 1 or (tiles >= 2 * k and fit(k) and waves(k) <= waves(1)))
-    stages = max(s for s in range(2, MAX_STAGES + 1)
-                 if s == 2 or smem_bytes(torch.bfloat16, c, th, tw, s) <= SMEM_LIMIT)
+    cluster = hp.multicast_cluster(tiles, hp.fit_counts(fits, sms))
+    stages = hp.ring_stages(lambda s: smem_bytes(torch.bfloat16, c, th, tw, s))
     grid = -(-tiles // cluster) * cluster
     return dict(tile=(th, tw), cluster=cluster, stages=stages, blocks=grid,
                 smem=smem_bytes(torch.bfloat16, c, th, tw, stages),
@@ -283,13 +275,12 @@ def clusters_fit(c: int, stages: int, cluster: int) -> int:
     return _library().pf_fused_block_max_clusters(c, stages, cluster)
 
 
+@functools.lru_cache(maxsize=None)
 def launch_plan(b: int, h: int, w: int, c: int, heads: int, device: torch.device) -> dict:
     """The bf16 plan the wrapper launches on ``device``: ``plan`` with the
     card's own count of the clusters it runs at once (needs the card)."""
-    sms = mf.sm_count(device)
-    stages = plan(b, h, w, c, heads, sms)["stages"]
-    fits = tuple((k, clusters_fit(c, stages, k)) for k in CLUSTERS)
-    return plan(b, h, w, c, heads, sms, fits)
+    return hp.launch_plan(lambda sms, fits: plan(b, h, w, c, heads, sms, fits),
+                          lambda p, k: clusters_fit(c, p["stages"], k), device)
 
 
 def fused_block(
@@ -308,7 +299,7 @@ def fused_block(
     check_kernel_args(*args, num_heads, h, w)
     b, n, c = ln1x.shape
     m = kv_in.shape[1]
-    sms = mf.sm_count(ln1x.device)
+    sms = hp.sm_count(ln1x.device)
     cluster, stages = 1, 0
     if ln1x.dtype == torch.float32:
         th, tw = choose_tile(b, h, w, c, num_heads, ln1x.dtype, sms)

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from perspectivefields_tpu import PerspectiveFields as JaxPerspectiveFields
+from perspectivefields_tpu.checkpoint import io as jax_io
 from perspectivefields_tpu.checkpoint import torch_convert
 from perspectivefields_tpu.config import model_zoo as jax_model_zoo
 from perspectivefields_tpu.models import mit as jax_mit
@@ -30,6 +31,7 @@ from perspectivefields_tpu.config import (
     ParamNetConfig,
 )
 from perspectivefields_tpu_torch import PerspectiveFields, checkpoint, native
+from perspectivefields_tpu_torch import api as torch_api
 from perspectivefields_tpu_torch.config import model_zoo
 from perspectivefields_tpu_torch.ops.image import pil_resize_uint8
 from perspectivefields_tpu_torch.ops.codec import decode_bin
@@ -372,6 +374,126 @@ def test_released_pth_path_loads_the_same_weights(torch_model, tmp_path):
         loaded.inference(img)["pred_gravity_original"],
         torch_model.inference(img)["pred_gravity_original"],
     )
+
+
+def _weights_dir(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch_api, "_WEIGHTS_DIR", str(tmp_path))
+    return tmp_path
+
+
+def _write_corrupt(path, kind):
+    """A file that fails to parse: garbage bytes, or a real archive cut in
+    half (a truncated download)."""
+    if kind == "garbage":
+        path.write_bytes(b"<html>captive portal</html>")
+    else:
+        full = path.with_name("full" + path.suffix)
+        if path.suffix == ".npz":
+            np.savez_compressed(full, a=np.arange(4096, dtype=np.float32))
+        else:
+            torch.save({"model": {"w": torch.arange(4096.0)}}, full)
+        data = full.read_bytes()
+        path.write_bytes(data[: len(data) // 2])
+
+
+@pytest.mark.parametrize("kind", ["garbage", "truncated"])
+@pytest.mark.parametrize("suffix", [".npz", ".pth"])
+def test_corrupt_cached_weights_are_quarantined(monkeypatch, tmp_path, suffix, kind):
+    """A corrupt cached <version>.npz or .pth warns, is renamed .corrupt, and
+    the constructor falls through to random init (JAX: _init_params)."""
+    wdir = _weights_dir(monkeypatch, tmp_path)
+    path = wdir / f"custom{suffix}"
+    _write_corrupt(path, kind)
+    with pytest.warns(UserWarning) as record:
+        model = PerspectiveFields("custom", config=CFG, device="cpu")
+    text = " ".join(str(w.message) for w in record)
+    assert "failed to load" in text and "random initialization" in text
+    assert not path.exists() and (wdir / f"custom{suffix}.corrupt").exists()
+    seeded = torch_api.PersNet(CFG)
+    torch_api.init_random_(seeded, seed=0)
+    for name, value in seeded.state_dict().items():
+        torch.testing.assert_close(model.model.state_dict()[name], value, rtol=0, atol=0)
+
+
+def test_corrupt_npz_falls_through_to_the_pth(monkeypatch, tmp_path, torch_model):
+    wdir = _weights_dir(monkeypatch, tmp_path)
+    _write_corrupt(wdir / "custom.npz", "truncated")
+    torch.save({"model": torch_model.model.state_dict()}, wdir / "custom.pth")
+    with pytest.warns(UserWarning, match="failed to load"):
+        loaded = PerspectiveFields("custom", config=CFG, device="cpu")
+    assert (wdir / "custom.npz.corrupt").exists() and (wdir / "custom.pth").exists()
+    img = _images()[1]
+    np.testing.assert_array_equal(
+        loaded.inference(img)["pred_gravity_original"],
+        torch_model.inference(img)["pred_gravity_original"],
+    )
+
+
+def test_user_passed_corrupt_path_is_not_guarded(tmp_path):
+    path = tmp_path / "mine.npz"
+    _write_corrupt(path, "garbage")
+    with pytest.raises(ValueError):
+        PerspectiveFields("custom", config=CFG, params=str(path), device="cpu")
+    assert path.exists()
+
+
+@pytest.mark.parametrize("how", ["cached", "path"])
+def test_jax_npz_loads_and_matches_jax(monkeypatch, tmp_path, jax_model, how):
+    """An .npz written by the JAX package's save_params, found in the
+    weights directory or passed as a path: the same forward as JAX's from
+    the same tree, f32."""
+    wdir = _weights_dir(monkeypatch, tmp_path)
+    jax_io.save_params(jax_model.params, str(wdir / "custom.npz"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # no random-init warning
+        model = PerspectiveFields(
+            "custom", config=CFG, device="cpu",
+            params=None if how == "cached" else str(wdir / "custom.npz"),
+        )
+    images = _images()
+    _assert_same(model.inference_batch(images)[0], jax_model.inference_batch(images)[0])
+
+
+def test_unflatten_copy_matches_jax():
+    flat = {"params/a/kernel": np.ones(2), "params/a/bias": np.zeros(1),
+            "params/b/c/scale": np.arange(3), "top": np.float32(1.0)}
+    got, want = checkpoint._unflatten(flat), jax_io._unflatten(flat)
+    assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(want)
+    for g, w in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)):
+        assert g is w
+
+
+def test_bfloat16_outputs_are_float32(jax_model):
+    """In bf16 the port returns every output as float32 numpy, where JAX
+    returns the network-size fields and parameters as bfloat16 (the
+    documented difference; the _original fields are float32 in both)."""
+    bf = PerspectiveFields("custom", config=CFG, params=jax_model.params, device="cpu",
+                           compute_dtype="bfloat16")
+    pred = bf.inference(_images()[0])
+    for key, value in pred.items():
+        if key != "pred_latitude_original_mode":
+            assert np.asarray(value).dtype == np.float32, key
+    assert "pred_roll" in pred and "pred_gravity" in pred
+
+
+def test_npz_loads_without_jax(tmp_path, jax_model):
+    """The card's machine has no JAX: a JAX .npz loads with numpy alone."""
+    path = tmp_path / "custom.npz"
+    jax_io.save_params(jax_model.params, str(path))
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'flax', 'perspectivefields_tpu'): sys.modules[name] = None\n"
+        "from perspectivefields_tpu_torch import checkpoint\n"
+        f"sd = checkpoint.load_npz({str(path)!r})\n"
+        "assert len(sd) > 100 and all(v.dtype.is_floating_point for v in sd.values())\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=_REPO, capture_output=True, text=True,
+        timeout=120, env={**os.environ, "PYTHONPATH": _REPO},
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
 
 
 def test_unknown_version_raises():

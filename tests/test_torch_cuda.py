@@ -131,6 +131,120 @@ def test_mixffn_kernel_matches_plain_version(cuda_device, b, h, w, c, dtype):
     _assert_kernel_close(got, mf.mixffn_reference(*[a.float() for a in args]), dtype)
 
 
+# (cluster, split) of the bf16 MixFFN and attention kernels: multicast over
+# 1, 2, 4, 8 tiles, or a split of a tile's hidden chunks / heads over 2, 4, 8
+CLUSTER_SPLITS = [(1, 0), (2, 0), (4, 0), (8, 0), (2, 1), (4, 1), (8, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster,split", CLUSTER_SPLITS)
+@pytest.mark.parametrize("b,h,w,c,tile", [(3, 13, 7, 128, (5, 7)), (2, 9, 10, 128, (4, 10)),
+                                          (2, 9, 5, 320, (3, 5))])
+def test_mixffn_kernel_at_every_cluster_and_split(cuda_device, b, h, w, c, tile, cluster, split):
+    """bf16, every multicast cluster and hidden split on ragged maps, with
+    one (5x7, 3x5) and two (4x10) row groups of halo: grids padded to the
+    cluster, tiles cut at the map's edge, partial outputs summed over 2-8
+    blocks."""
+    args = _ffn_args(b, h, w, c, torch.bfloat16, seed=cluster + split)
+    stages = mf.ring_stages(c, *tile)
+    assert not split or mf.split_fits(c, *tile, stages)
+    got = mf.launch(*args, *tile, cluster, split, stages)
+    torch.cuda.synchronize()
+    _assert_kernel_close(got, mf.mixffn_reference(*[a.float() for a in args]), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [96, 192, 256, 384, 448, 576, 640, 672, 768, 896, 1024, 1280])
+@pytest.mark.parametrize("b,h,w", [(2, 9, 5), (1, 12, 12), (8, 10, 10)])
+def test_mixffn_kernel_at_every_width(cuda_device, b, h, w, c):
+    """bf16 widths past MiT's four, up to 1280 (NT = 1 to 5 W2 tiles a
+    pass; two passes past 640), on the wrapper's own plan."""
+    args = _ffn_args(b, h, w, c, torch.bfloat16, seed=c)
+    before = mf.LAUNCHES
+    got = mf.mixffn(*args)
+    torch.cuda.synchronize()
+    assert mf.LAUNCHES == before + 1
+    _assert_kernel_close(got, mf.mixffn_reference(*[a.float() for a in args]), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("b,h,w,c,tile", [(2, 9, 10, 704, (4, 8)), (3, 7, 11, 1024, (5, 7))])
+def test_mixffn_kernel_in_passes_at_every_cluster(cuda_device, b, h, w, c, tile, cluster):
+    """bf16 past 640 channels (two passes over the W2 tiles, the last one
+    partly past C), every multicast cluster on ragged maps; a split, which
+    takes one pass only, is refused."""
+    args = _ffn_args(b, h, w, c, torch.bfloat16, seed=cluster)
+    stages = mf.ring_stages(c, *tile)
+    got = mf.launch(*args, *tile, cluster, 0, stages)
+    torch.cuda.synchronize()
+    _assert_kernel_close(got, mf.mixffn_reference(*[a.float() for a in args]), torch.bfloat16)
+    if cluster > 1:
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            mf.launch(*args, *tile, cluster, 1, stages)
+
+
+@pytest.mark.cuda
+def test_mixffn_smem_count_matches_kernel(cuda_device):
+    for c in (64, 128, 320, 512, 640, 768, 1280):
+        for th, tw in [(1, 1), (5, 7), (6, 6), (4, 10), (3, 20)]:
+            for stages in (2, 3, 6):
+                for dtype in (torch.float32, torch.bfloat16):
+                    if dtype == torch.float32 and stages != 2:
+                        continue
+                    assert mf.smem_bytes(dtype, c, th, tw, stages) == mf.kernel_smem_bytes(
+                        dtype, c, th, tw, stages)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster,split", CLUSTER_SPLITS)
+@pytest.mark.parametrize("b,n,m,heads", [(3, 100, 100, 8), (2, 129, 37, 9)])
+def test_attention_kernel_at_every_cluster_and_split(cuda_device, b, n, m, heads, cluster, split):
+    """bf16, every multicast cluster and head split: grids padded to the
+    cluster, row tiles cut at N, shares of 1-5 heads and of the output
+    columns, o gathered over the split's 2-8 blocks."""
+    c = heads * 64
+    args = _args(b, n, m, c, torch.bfloat16, seed=cluster + split)
+    res = _args(b, n, m, c, torch.bfloat16, seed=9)[0]
+    hs = -(-heads // cluster) if split else heads
+    stages = max(s for s in range(2, 7) if fa.smem_bytes(c, hs, s) <= fa.SMEM_LIMIT)
+    got = fa.launch(*args, heads, 64**-0.5, res, cluster, split, stages)
+    torch.cuda.synchronize()
+    want = fa.fused_attention_reference(*[a.float() for a in args], heads, 64**-0.5,
+                                        residual=res.float())
+    _assert_kernel_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_residual", [False, True], ids=["plain", "residual"])
+@pytest.mark.parametrize(
+    "b,n,m,heads",
+    [(2, 65, 1, 1), (3, 37, 128, 2), (2, 129, 100, 3), (1, 1, 100, 4), (4, 200, 128, 5),
+     (2, 63, 1, 7), (1, 100, 100, 8), (2, 64, 100, 10), (1, 31, 1, 11)],
+)
+def test_attention_kernel_on_ragged_rows_at_every_width(cuda_device, b, n, m, heads, with_residual):
+    """bf16, N not a multiple of 64, M = 1, 100 and 128, C = 64 to 704 (the
+    width B6's gate sends here), on the wrapper's own plan."""
+    c = heads * 64
+    args = _args(b, n, m, c, torch.bfloat16, seed=heads)
+    res = _args(b, n, m, c, torch.bfloat16, seed=10)[0] if with_residual else None
+    before = fa.LAUNCHES
+    got = fa.fused_attention(*args, heads, 64**-0.5, residual=res)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    want = fa.fused_attention_reference(*[a.float() for a in args], heads, 64**-0.5,
+                                        residual=None if res is None else res.float())
+    _assert_kernel_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_attention_smem_count_matches_kernel(cuda_device):
+    for c in (64, 128, 320, 512, 640, 704):
+        for hs in (1, 2, 5, 11):
+            for stages in (2, 3, 6):
+                assert fa.smem_bytes(c, hs, stages) == fa.kernel_smem_bytes(c, hs, stages)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize(

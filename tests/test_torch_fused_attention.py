@@ -7,6 +7,7 @@ tests/test_torch_cuda.py and ``python3 chip_smoke.py``.
 """
 
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -156,6 +157,55 @@ def test_gate_refuses_kernel_limits():
     assert not fa.use_kernel(True, True, 400, 32, 100, cuda)   # head_dim
     assert not fa.use_kernel(True, True, 400, 64, 129, cuda)   # keys
     assert not fa.use_kernel(True, True, 2049, 64, 100, cuda)  # token gate
+
+
+@pytest.mark.parametrize("heads", list(range(1, 11)))
+@pytest.mark.parametrize("b,n", [(8, 1600), (8, 400), (8, 100), (3, 37), (1, 1), (32, 400)])
+def test_plan_fits_at_every_width(b, n, heads):
+    """Every bf16 plan at C = heads * 64 up to 640 on flagship and ragged
+    token counts is one csrc/fused_attention.cu takes: shared memory, a
+    cluster of 1-8 that divides the padded grid, a head split over no more
+    blocks than heads (each block at least one head, 64 / S rows to
+    finish), 2-6 ring stages."""
+    c = heads * fa.HEAD_DIM
+    p = fa.plan(b, n, c, heads, 100)
+    tiles = b * -(-n // fa.ROWS_BF16)
+    assert p["smem"] == fa.smem_bytes(c, p["heads_per_block"], p["stages"]) <= fa.SMEM_LIMIT
+    assert 2 <= p["stages"] <= fa.MAX_STAGES
+    assert p["cluster"] in fa.CLUSTERS and p["blocks"] % p["cluster"] == 0
+    if p["split"]:
+        assert p["blocks"] == tiles * p["cluster"] and 2 <= p["cluster"] <= heads
+        assert p["heads_per_block"] == -(-heads // p["cluster"])
+    else:
+        assert p["heads_per_block"] == heads and p["blocks"] == -(-tiles // p["cluster"]) * p["cluster"]
+    assert p["weight_bytes"] > 0
+
+
+@pytest.mark.parametrize(
+    "b,n,c,heads,split,blocks",
+    [(8, 1600, 128, 2, 0, 1), (8, 400, 320, 5, 1, 2), (8, 100, 512, 8, 1, 8),
+     (1, 31, 704, 11, 1, 8)],
+)
+def test_plan_splits_heads_where_row_tiles_are_few(b, n, c, heads, split, blocks):
+    """Stage 2's 200 row tiles multicast over clusters of 8; stages 3 and 4
+    (56 and 16 row tiles at B=8) split their heads over 2 and 8 blocks; the
+    one width past 640 that B6's gate sends here (C = 704 on <= 31 tokens)
+    fits only split."""
+    p = fa.plan(b, n, c, heads, 100)
+    assert p["split"] == split and (p["cluster"] if split else 1) == blocks
+
+
+@pytest.mark.parametrize("name", ["fused_attention", "mixffn"])
+def test_phase_stamps_are_named(name):
+    """Every PF_STAMP id in the kernel's source has a name in chip_smoke.py
+    --phases' table, and every named id is stamped (PF_STAMP_STEP(i, j):
+    i + 10 j for loop steps j < 8)."""
+    import chip_smoke
+
+    src = (build_mod.CSRC / f"{name}.cu").read_text()
+    ids = {int(i) for i in re.findall(r"PF_STAMP\((\d+)\)", src)}
+    ids |= {int(i) + 10 * j for i in re.findall(r"PF_STAMP_STEP\((\d+),", src) for j in range(8)}
+    assert ids == set(chip_smoke.PHASE_NAMES[name])
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

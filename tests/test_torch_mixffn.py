@@ -136,28 +136,116 @@ def test_kernel_arg_check_refuses(name):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("h,w,c", FLAGSHIP + [RAGGED])
 def test_tile_fits_the_kernel_limits(h, w, c, dtype):
-    """The tile the wrapper picks is one csrc/mixffn.cu takes: halo <= 128
-    tokens, the bf16 accumulators, shared memory; and it covers the image."""
+    """The tile the wrapper picks is one csrc/mixffn.cu takes: float32, a
+    halo <= 128 tokens and shared memory (choose_tile); bfloat16, <= 64
+    outputs (fc2's wgmma M) in a halo of <= 128 tokens (<= 64 past C = 384)
+    and shared memory for the ring (plan); and it covers the image."""
     th, tw = mf.choose_tile(8, h, w, c, dtype)
     assert 1 <= th <= h and 1 <= tw <= w
     assert -(-(th + 2) * (tw + 2) // 16) * 16 <= mf.MAX_HALO
-    assert mf.smem_bytes(dtype, c, th, tw) <= mf.SMEM_LIMIT
     if dtype == torch.bfloat16:
-        assert -(-th * tw // 16) * (c // 16) <= mf.MAX_OUT_TILES
+        p = mf.plan(8, h, w, c)
+        assert p["tile"] == (th, tw) and th * tw <= mf.OUT_ROWS_BF16
+        assert (th + 2) * (tw + 2) <= (128 if c <= 384 else 64)
+        assert mf.smem_bytes(dtype, c, th, tw, p["stages"]) == p["smem"] <= mf.SMEM_LIMIT
+    else:
+        assert mf.smem_bytes(dtype, c, th, tw) <= mf.SMEM_LIMIT
     args = _torch_args(_inputs(np.random.default_rng(6), 1, 1, 1, c, 4 * c))
     args[0] = torch.zeros(2, h, w, c)
     mf.check_kernel_args(*args)
 
 
 @pytest.mark.parametrize(
-    "blocks,chunks,sms,want",
-    [(640, 4, 132, 1), (80, 20, 132, 1), (32, 32, 132, 4), (25, 96, 132, 5), (1, 32, 132, 8),
-     (2, 3, 132, 3)],
+    "b,h,w,c,want",
+    [(8, 80, 80, 64, 0), (8, 40, 40, 128, 0), (8, 20, 20, 320, 1), (8, 10, 10, 512, 1),
+     (1, 7, 7, 512, 1), (32, 20, 20, 320, 0)],
 )
-def test_hidden_split_fills_idle_sms(blocks, chunks, sms, want):
-    """Split only where the tiles leave SMs idle; at most MAX_SPLIT, and
-    never more splits than hidden chunks."""
-    assert mf.choose_split(blocks, chunks, sms) == want
+def test_hidden_split_fills_idle_sms(b, h, w, c, want):
+    """The bf16 plan splits each tile's hidden chunks over a cluster only
+    where the tiles leave SMs idle (stages 3-4 at B=8), never over more
+    blocks than chunks; otherwise its cluster multicasts the weights over
+    neighbouring tiles."""
+    p = mf.plan(b, h, w, c)
+    th, tw = p["tile"]
+    tiles = b * -(-h // th) * -(-w // tw)
+    assert p["split"] == want
+    if want:
+        assert tiles < 132 and p["blocks"] == tiles * p["cluster"] <= 2 * 132
+        assert 2 <= p["cluster"] <= 4 * c // mf.HIDDEN_CHUNK
+        assert p["weight_bytes"] == tiles * 8 * c * c * 2
+    else:
+        assert p["blocks"] == -(-tiles // p["cluster"]) * p["cluster"]
+        assert p["weight_bytes"] == p["blocks"] // p["cluster"] * 8 * c * c * 2
+
+
+@pytest.mark.parametrize(
+    "c", [64, 96, 128, 192, 256, 320, 384, 448, 512, 576, 640, 672, 768, 896, 1024, 1280])
+@pytest.mark.parametrize("b,h,w", [(8, 80, 80), (8, 20, 20), (2, 9, 5), (1, 10, 10), (3, 13, 7)])
+def test_plan_fits_at_every_width(b, h, w, c):
+    """Every bf16 plan at widths 64-1280 on flagship and ragged maps is one
+    the kernel takes: shared memory, <= 64 outputs in a halo of <= 128
+    tokens (<= 64 where a pass has more than 3 W2 tiles), a cluster of 1-8
+    that divides the padded grid, a split (one pass only) over no more
+    blocks than hidden chunks (and rows a block finishes: 64 / S), 2-6 ring
+    stages, the passes of ``w2_passes``."""
+    p = mf.plan(b, h, w, c)
+    th, tw = p["tile"]
+    passes, ntp = mf.w2_passes(c)
+    assert p["passes"] == passes
+    assert 1 <= th <= h and 1 <= tw <= w and th * tw <= mf.OUT_ROWS_BF16
+    assert (th + 2) * (tw + 2) <= (128 if ntp <= mf.MAX_TILES_TWO_GROUPS else 64)
+    assert p["halo_groups"] == mf.halo_groups(th, tw)
+    assert p["smem"] == mf.smem_bytes(torch.bfloat16, c, th, tw, p["stages"]) <= mf.SMEM_LIMIT
+    assert 2 <= p["stages"] <= mf.MAX_STAGES
+    assert p["cluster"] in mf.CLUSTERS and p["blocks"] % p["cluster"] == 0
+    if p["split"]:
+        assert 2 <= p["cluster"] <= 4 * c // mf.HIDDEN_CHUNK and 64 % p["cluster"] == 0
+        assert mf.split_fits(c, th, tw, p["stages"]) and passes == 1
+    assert p["weight_bytes"] > 0
+
+
+@pytest.mark.parametrize(
+    "c,passes,tiles",
+    [(64, 1, 1), (320, 1, 3), (640, 1, 5), (672, 2, 3), (768, 2, 3), (896, 2, 4), (1152, 2, 5),
+     (1280, 2, 5)],
+)
+def test_w2_passes_share_the_tiles_evenly(c, passes, tiles):
+    """fc2's accumulators hold at most 5 W2 tiles (640 columns): a wider C
+    takes the fewest passes, each over an even share of the tiles, which
+    together cover C."""
+    assert mf.w2_passes(c) == (passes, tiles)
+    assert tiles <= mf.MAX_TILES_PASS and passes * tiles * 128 >= c > (passes * tiles - tiles) * 128
+
+
+def test_fused_module_stays_fused_past_640():
+    """A MixFFN wider than 640 channels takes the fused route in both
+    dtypes (the bf16 kernel walks the W2 tiles in passes)."""
+    mod = mit.MixFFN(672, 4 * 672, fused=True)
+    x = torch.tensor(np.random.default_rng(8).normal(size=(1, 3, 3, 672)), dtype=torch.float32)
+    before = mf.LAUNCHES
+    with torch.no_grad():
+        calls = []
+        orig = mit.mixffn
+        mit.mixffn = lambda *a: calls.append(a[0].dtype) or orig(*a)
+        try:
+            mod(x)
+            mod.to(torch.bfloat16)(x.to(torch.bfloat16))
+        finally:
+            mit.mixffn = orig
+    assert calls == [torch.float32, torch.bfloat16] and mf.LAUNCHES == before
+
+
+def test_bf16_refuses_widths_past_the_kernel():
+    """bf16 takes C <= 1280: past it x's 64 halo rows and a 2-stage ring no
+    longer fit shared memory."""
+    assert mf.smem_bytes(torch.bfloat16, 1280, 1, 1, 2) <= mf.SMEM_LIMIT
+    assert mf.smem_bytes(torch.bfloat16, 1312, 1, 1, 2) > mf.SMEM_LIMIT
+    args = _torch_args(_inputs(np.random.default_rng(7), 1, 2, 2, 1312, 4 * 1312))
+    mf.check_kernel_args(*args)  # float32 takes any C % 32 == 0
+    with pytest.raises(ValueError, match="C <= 1280"):
+        mf.check_kernel_args(*[a.to(torch.bfloat16) for a in args])
+    with pytest.raises(ValueError, match="C <= 1280"):
+        mf.plan(1, 2, 2, 1312)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
