@@ -11,13 +11,14 @@ Phases (each fails loudly; nothing is caught and turned into success):
      tiles the clusters do not divide, widths past MiT's, M = 1 and 128);
      device times of the kernel, its plain version and, where one exists,
      one PyTorch library call, each from CUDA events around 30 back-to-back
-     calls (for the attention, MixFFN and ConvNeXt-block kernels also
-     replayed from a CUDA graph, without the host's launch cost); the module
+     calls (for every kernel but the whole block also replayed from a CUDA
+     graph, without the host's launch cost; stage-1 attention at B=32 too,
+     where its tensors no longer fit the L2); the module
      paths the kernels stand in for; each kernel's bound
-     and, for the four on hopper_gemm.cuh (attention, MixFFN, ConvNeXt
-     block, whole block), each stage's share of it, L2 weight bytes a call
-     as plan() counts them, cluster size and, for attention and MixFFN, the
-     split. The decoder tail takes its inputs from a
+     and, for the six on hopper_gemm.cuh, each stage's share of it, L2
+     weight bytes a call as plan() counts them, cluster size and, for
+     attention and MixFFN, the split, for the decoder tail the tile. The
+     decoder tail takes its inputs from a
      seeded f32 forward of the flagship (a = fusion1's upsampled output,
      ll) and the heads' own weights at Co = 2, 1 (the flagship's heads), 73
      and 180 (PersNet-360Cities's);
@@ -48,13 +49,15 @@ The line before the last is a JSON object with the kernels' launch counts,
 errors, times and bounds; the last line is {"ok": true, "device": {...}}.
 Without a CUDA device it exits non-zero and prints neither.
 
-Two measurements of the bf16 attention and MixFFN kernels run apart from
-the phases above, each at the flagship's B=8 stage shapes:
+Two measurements of the bf16 attention, MixFFN, stage-1 attention and
+decoder-tail kernels run apart from the phases above, each at the
+flagship's B=8 shapes:
 
     python3 chip_smoke.py --phases
-        builds both with PF_PHASES (csrc/hopper_gemm.cuh's clock64() stamps)
-        and prints the cycles of each phase of block 0 (``[clk]`` lines),
-        then each launch's device time from torch.profiler (``[prof]``);
+        builds the four with PF_PHASES (csrc/hopper_gemm.cuh's clock64()
+        stamps) and prints the cycles of each phase of block 0 (``[clk]``
+        lines), then each launch's device time from torch.profiler
+        (``[prof]``);
     python3 chip_smoke.py --host-probe [ROOT]
         the host's time to issue one call of each wrapper (back to back,
         while the card is still busy), beside the device time back to back
@@ -437,14 +440,16 @@ def _fused_kernel_phase(name, mod, fn, ref, make_inputs, stages, cost, module_pa
 
 
 def stage1_kernel_phase() -> dict:
-    """stage1_attention vs its plain version at stage 1 (B=8) and a ragged
-    case, f32 and bf16, with and without the residual; then bf16 times of
-    the kernel, its plain version, F.multi_head_attention_forward (the
-    library call; the port never calls it), fused_attention at the same
-    shape, and SRAttention's stage-1 route vs its plain path."""
+    """stage1_attention vs its plain version at stage 1 (B=8) and ragged
+    cases (N = 999, 6401 and 64; M = 37, 128 and 1), f32 and bf16, with and
+    without the residual; then bf16 times of the kernel (back to back and
+    from a CUDA graph), its plain version, F.multi_head_attention_forward
+    (the library call; the port never calls it), fused_attention at the
+    same shape, SRAttention's stage-1 route vs its plain path, and the
+    kernel at B=32."""
     n1, m1, blocks = STAGE1
     max_abs, failures = 0.0, []
-    for b, n, m in [(8, n1, m1), (3, 999, 37)]:
+    for b, n, m in [(8, n1, m1), (3, 999, 37), (2, 6401, 128), (3, 64, 1)]:
         rng = np.random.default_rng(b * 1000 + n + m)
         args = _attn_inputs(rng, b, n, m, 64)
         res = _randn(rng, b, n, 64)
@@ -484,6 +489,7 @@ def stage1_kernel_phase() -> dict:
         lib_d = (library().transpose(0, 1).float() - s1.stage1_attention(*a, 0.125).float())
         lib_d = lib_d.abs().max().item()
         t_k = device_ms(lambda: s1.stage1_attention(*a, 0.125))
+        t_g = graph_ms(lambda: s1.stage1_attention(*a, 0.125))
         t_p = device_ms(lambda: s1.stage1_attention_reference(*a, 0.125))
         t_l = device_ms(library)
         t_b1 = device_ms(lambda: fa.fused_attention(*a, 1, 0.125))
@@ -495,10 +501,32 @@ def stage1_kernel_phase() -> dict:
     with torch.inference_mode():
         t_mk = device_ms(lambda: mods[True](xm))
         t_mp = device_ms(lambda: mods[False](xm))
-    log(f"[kernel] stage1_attention stage 1 bf16 B=8 N={n1} M={m1}: kernel {t_k:.4f} ms, plain "
+    p = s1.launch_plan(8, n1, x.device)
+    log(f"[kernel] stage1_attention stage 1 bf16 B=8 N={n1} M={m1}: kernel {t_k:.4f} ms (from a "
+        f"CUDA graph, without the host's launch cost: {t_g:.4f} ms), plain "
         f"version {t_p:.4f} ms, F.multi_head_attention_forward {t_l:.4f} ms (max|d| vs kernel "
-        f"{lib_d:.2e}), fused_attention at this shape {t_b1:.4f} ms, bound {t_b:.4f} ms ({by}); "
+        f"{lib_d:.2e}), fused_attention at this shape {t_b1:.4f} ms, bound {t_b:.4f} ms ({by}), "
+        f"{t_b / t_g:.1%} of the bound (graph), L2 weight bytes {p['weight_bytes'] / 1e6:.1f} MB a "
+        f"call, {p['blocks_per_image']} blocks an image, {p['tiles_per_group']} tiles a warpgroup; "
         f"SRAttention stage-1 route {t_mk:.4f} ms, plain path {t_mp:.4f} ms")
+    # B=32: x, the residual and out (52 MB each way with it) no longer fit the L2
+    a32 = [t.to(torch.bfloat16) for t in _attn_inputs(np.random.default_rng(32), 32, n1, m1, 64)]
+    r32 = _randn(np.random.default_rng(33), 32, n1, 64).to(torch.bfloat16)
+    x32, kv32 = a32[0].transpose(0, 1), a32[1].transpose(0, 1)
+    with torch.inference_mode():
+        t_k32 = device_ms(lambda: s1.stage1_attention(*a32, 0.125, residual=r32))
+        t_g32 = graph_ms(lambda: s1.stage1_attention(*a32, 0.125, residual=r32))
+        t_l32 = device_ms(lambda: F.multi_head_attention_forward(
+            x32, kv32, kv32, 64, 1, None, torch.cat([a32[3], a32[5]]), None, None, False, 0.0,
+            a32[6], a32[7], training=False, need_weights=False, use_separate_proj_weight=True,
+            q_proj_weight=a32[2], k_proj_weight=a32[4][:64], v_proj_weight=a32[4][64:])[0])
+    t_b32, by32 = stage_bound(roofline.attention_cost(32, n1, m1, 64, 1, residual=True))
+    p32 = s1.launch_plan(32, n1, x.device)
+    log(f"[kernel] stage1_attention stage 1 bf16 B=32 N={n1} M={m1} with the residual: kernel "
+        f"{t_k32:.4f} ms (from a CUDA graph: {t_g32:.4f} ms), F.multi_head_attention_forward "
+        f"(no residual) {t_l32:.4f} ms, bound {t_b32:.4f} ms ({by32}), {t_b32 / t_g32:.1%} of the "
+        f"bound (graph), {p32['blocks_per_image']} blocks an image, {p32['tiles_per_group']} tiles "
+        "a warpgroup")
     bound, by = roofline.per_forward([(cost, blocks)])
     return {"max_abs_err": max_abs, "ms": blocks * t_k, "plain_ms": blocks * t_p,
             "bound_ms": bound, "bound_by": by, "library_ms": blocks * t_l}
@@ -640,13 +668,15 @@ def _tail_weights(rng, cin, co):
 def tail_kernel_phase(sd, sd_cls) -> dict:
     """decoder_tail vs its plain version on the flagship's activations (B=8:
     a = fusion1's upsampled output and ll from a seeded f32 forward) with
-    each head's own weights, Co = 2, 1, 73 and 180, f32 and bf16, and a
-    ragged 13x9 map (Ca=32, Cl=8) whose every tile touches a border; then
-    bf16 times of the kernel, its plain version, the head's unfused back end
+    each head's own weights, Co = 2, 1, 73 and 180, f32 and bf16, a ragged
+    13x9 map (Ca=32, Cl=8) whose every tile touches a border and a 1x1 map
+    (Co = 9, 192); then bf16 times of the kernel (back to back and from a
+    CUDA graph), its plain version, the head's unfused back end
     on the same a (conv0 -> resize_bilinear -> conv1 -> 1x1 in cuDNN and
     PyTorch), fuse_tail's phase form, and JAX's whole back end (fuse_conv0 +
-    fuse_tail from fusion1's output before its upsample). No single PyTorch
-    call computes the tail."""
+    fuse_tail from fusion1's output before its upsample), and the plan's
+    cluster against single blocks on the same grid. No single PyTorch call
+    computes the tail."""
     f32, bf = torch.float32, torch.bfloat16
     nets = {dtype: {"flagship": persnet(VERSION, sd, dtype), "cls": persnet(CLS_VERSION, sd_cls, dtype)}
             for dtype in (f32, bf)}
@@ -662,6 +692,9 @@ def tail_kernel_phase(sd, sd_cls) -> dict:
     rng = np.random.default_rng(5)
     for co in (2, 73):
         cases.append(("ragged B=3 13x9 Ca=32 Cl=8", _randn(rng, 3, 13, 9, 32), _randn(rng, 3, 13, 9, 8),
+                      _tail_weights(rng, 40, co)))
+    for co in (9, 192):
+        cases.append(("ragged B=2 1x1 Ca=32 Cl=8", _randn(rng, 2, 1, 1, 32), _randn(rng, 2, 1, 1, 8),
                       _tail_weights(rng, 40, co)))
     max_abs, failures = 0.0, []
     for tag, a_, ll_, w in cases:
@@ -697,6 +730,7 @@ def tail_kernel_phase(sd, sd_cls) -> dict:
             head = nets[bf][model_key].persformer_heads[head_name]
             args = [a_b, ll_b, *head_weights(head)]
             t_k = device_ms(lambda: dt.decoder_tail(*args))
+            t_g = graph_ms(lambda: dt.decoder_tail(*args))
             t_p = device_ms(lambda: dt.decoder_tail_reference(*args))
             head.fuse_conv0, head.fuse_tail = False, False
             t_u = device_ms(lambda: head.back_end(a_b, ll_b))
@@ -705,13 +739,30 @@ def tail_kernel_phase(sd, sd_cls) -> dict:
             head.fuse_conv0 = True
             t_j = device_ms(lambda: head.back_end(a0_b, ll_b))
             t_b, by = stage_bound(roofline.decoder_tail_cost(8, TAIL_HW, TAIL_HW, co=co))
+            p = dt.launch_plan(8, TAIL_HW, TAIL_HW, a_b.shape[-1], ll_b.shape[-1], co, a_b.device)
+            th, tw = p["tile"]
             log(f"[kernel] decoder_tail {model_key} {head_name} bf16 B=8 {TAIL_HW}x{TAIL_HW} Co={co}: "
-                f"kernel {t_k:.4f} ms, plain version {t_p:.4f} ms, bound {t_b:.4f} ms ({by}); "
+                f"kernel {t_k:.4f} ms (from a CUDA graph: {t_g:.4f} ms), plain version {t_p:.4f} ms, "
+                f"bound {t_b:.4f} ms ({by}), {t_b / t_k:.1%} of the bound, L2 weight bytes "
+                f"{p['weight_bytes'] / 1e6:.1f} MB a call, tile {th}x{tw}, cluster {p['cluster']}, "
+                f"{p['blocks']} blocks x {p['iters']} tiles; "
                 f"unfused back end {t_u:.4f} ms, fuse_tail phase form {t_f:.4f} ms, JAX's back end "
                 f"(fuse_conv0 + fuse_tail) {t_j:.4f} ms; no single PyTorch call computes it")
             if model_key == "flagship":
                 tot["ms"] += t_k
                 tot["plain_ms"] += t_p
+        # the plan's cluster against single blocks on the same grid (same
+        # waves): what multicasting w0 saves a tile, with w0's L2 reads
+        head = nets[bf]["flagship"].persformer_heads["gravity_head"]
+        args = [a_b, ll_b, *head_weights(head)]
+        p = dt.launch_plan(8, TAIL_HW, TAIL_HW, a_b.shape[-1], ll_b.shape[-1], 2, a_b.device)
+        w0 = 9 * 64 * (a_b.shape[-1] + ll_b.shape[-1]) * 2
+        times = {k: graph_ms(lambda k=k: dt.launch(*args, *p["tile"], k, p["blocks"], p["stages"]))
+                 for k in sorted({1, p["cluster"]})}
+        log("[kernel] decoder_tail flagship gravity_head bf16 B=8 Co=2, the plan's grid of "
+            f"{p['blocks']} blocks x {p['iters']} tiles from a CUDA graph: "
+            + ", ".join(f"cluster {k} {t:.4f} ms (w0 read from L2 {p['blocks'] // k * p['iters'] * w0 / 1e6:.0f} MB)"
+                        for k, t in times.items()))
     bound, by = roofline.per_forward(roofline.flagship()["decoder_tail"][1])
     return {"max_abs_err": max_abs, **tot, "bound_ms": bound, "bound_by": by, "library_ms": None}
 
@@ -1093,6 +1144,12 @@ PHASE_NAMES = {
     "mixffn": {0: "start", 1: "x", 2: "fc1(0) and mask", 96: "drain", 97: "partials written",
                **{i + 10 * j: f"{name} {j}" for j in range(8) for i, name in (
                    (3, "fc1 issue"), (4, "taps"), (6, "fc2 issue"), (5, "mask"))}},
+    "stage1_attention": {0: "start", 1: "weights and kv_in", 2: "K/V",
+                         **{i + 10 * j: f"{name} {j}" for j in range(8) for i, name in (
+                             (3, "x arrived"), (4, "q"), (5, "logits"), (6, "softmax"),
+                             (7, "P.V"), (8, "out stored"))}},
+    "decoder_tail": {0: "start", **{i + 10 * j: f"{name} {j}" for j in range(8) for i, name in (
+        (2, "conv0"), (3, "c0 stored"), (4, "upsample"), (5, "conv1 + 1x1"))}},
 }
 
 
@@ -1100,15 +1157,24 @@ def _bf16(tensors):
     return [t.to(torch.bfloat16) for t in tensors]
 
 
+def _tail_inputs(rng, b, co):
+    """a and ll at the heads' widths on the flagship's 160x160 grid, and a
+    tail's weights, bf16 (random: for timing)."""
+    return _bf16([_randn(rng, b, TAIL_HW, TAIL_HW, 256), _randn(rng, b, TAIL_HW, TAIL_HW, 64),
+                  *_tail_weights(rng, 320, co)])
+
+
 def phases_main() -> int:
-    """Per-phase clock64() counts of the bf16 attention and MixFFN kernels,
-    then each launch's device time from torch.profiler."""
+    """Per-phase clock64() counts of the bf16 attention, MixFFN, stage-1
+    attention and decoder-tail kernels, then each launch's device time from
+    torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     probe()
     device = torch.device("cuda")
     libs = {name: kbuild.library(name, mod._SIGNATURES, ("PF_PHASES",))
-            for name, mod in (("fused_attention", fa), ("mixffn", mf))}
+            for name, mod in (("fused_attention", fa), ("mixffn", mf), ("stage1_attention", s1),
+                              ("decoder_tail", dt))}
     for lib in libs.values():
         lib.pf_read_clk.argtypes = [ctypes.c_void_p]
     calls = {}
@@ -1125,6 +1191,17 @@ def phases_main() -> int:
         calls[f"mixffn stage {stage} (tile {th}x{tw} cluster {p['cluster']} split {p['split']})"] = (
             "mixffn", lambda lib, a=a, p=p: mf.launch(
                 *a, *p["tile"], p["cluster"], p["split"], p["stages"], lib=lib))
+    n1, m1, _ = STAGE1
+    a = _bf16(_attn_inputs(np.random.default_rng(1), 8, n1, m1, 64))
+    p = s1.launch_plan(8, n1, device)
+    calls[f"stage1_attention stage 1 ({p['blocks_per_image']} blocks an image)"] = (
+        "stage1_attention", lambda lib, a=a, p=p: s1.launch(
+            *a, 0.125, None, p["blocks_per_image"], lib=lib))
+    a = _tail_inputs(np.random.default_rng(2), 8, 2)
+    p = dt.launch_plan(8, TAIL_HW, TAIL_HW, 256, 64, 2, device)
+    calls[f"decoder_tail Co=2 (tile {p['tile'][0]}x{p['tile'][1]} cluster {p['cluster']})"] = (
+        "decoder_tail", lambda lib, a=a, p=p: dt.launch(
+            *a, *p["tile"], p["cluster"], p["blocks"], p["stages"], lib=lib))
     log(f"[clk] {torch.cuda.get_device_name(0)} ({card_line()}); cycles of thread 0 of block 0, "
         "second of two calls, each phase since the one before")
     buf = np.zeros(256, np.int64)
@@ -1155,8 +1232,9 @@ def phases_main() -> int:
 
 
 def host_probe_main(root: str) -> int:
-    """The host's cost of one call of the bf16 attention and MixFFN wrappers
-    of the package under ``root``: the wall time of issuing 200 calls back
+    """The host's cost of one call of the bf16 attention, MixFFN, stage-1
+    attention and decoder-tail wrappers of the package under ``root``
+    (B=8, the flagship's shapes): the wall time of issuing 200 calls back
     to back (the card still busy with the earlier ones, so the host never
     waits on it), beside the device time per call back to back and from a
     CUDA graph."""
@@ -1167,6 +1245,8 @@ def host_probe_main(root: str) -> int:
         del sys.modules[name]
     pfa = importlib.import_module("perspectivefields_tpu_torch.kernels.fused_attention")
     pmf = importlib.import_module("perspectivefields_tpu_torch.kernels.mixffn")
+    ps1 = importlib.import_module("perspectivefields_tpu_torch.kernels.stage1_attention")
+    pdt = importlib.import_module("perspectivefields_tpu_torch.kernels.decoder_tail")
     if not pfa.__file__.startswith(root):
         raise RuntimeError(f"imported {pfa.__file__}, not the package under {root}")
     cases = []
@@ -1176,6 +1256,11 @@ def host_probe_main(root: str) -> int:
     for stage, (hw, c, _) in FFN_STAGES.items():
         a = _bf16(_ffn_inputs(np.random.default_rng(stage), 8, hw, hw, c))
         cases.append((f"mixffn stage {stage}", lambda a=a: pmf.mixffn(*a)))
+    n1, m1, _ = STAGE1
+    a = _bf16(_attn_inputs(np.random.default_rng(1), 8, n1, m1, 64))
+    cases.append(("stage1_attention stage 1", lambda a=a: ps1.stage1_attention(*a, 0.125)))
+    a = _tail_inputs(np.random.default_rng(2), 8, 2)
+    cases.append(("decoder_tail Co=2", lambda a=a: pdt.decoder_tail(*a)))
     calls = 200
     with torch.inference_mode():
         for tag, fn in cases:

@@ -1,7 +1,9 @@
 // Device code shared by the attention kernels (fused_attention.cu,
 // stage1_attention.cu, fused_block.cu): the K/V projection into a scratch
-// tensor (their first launch; fused_attention.cu's bf16 path has its own on
-// wgmma), the f32 scalar-FMA projection tiles and the row softmax.
+// tensor (their first launch; at bf16 only fused_block.cu's:
+// fused_attention.cu's bf16 path has its own on wgmma, stage1_attention.cu's
+// projects K/V in each block), the f32 scalar-FMA projection tiles and the
+// f32 row softmax.
 //
 // float32 sums every product as one FMA chain over k in order, and the
 // softmax reduces each row in one warp's order, so the f32 kernels round as
@@ -148,8 +150,6 @@ __device__ __forceinline__ void softmax_rows_f32(float* s, int rows) {
 
 constexpr int kTcThreads = 256;          // 8 warps
 constexpr int kTcWarps = kTcThreads / 32;
-constexpr int kPLd = kMaxM + kPad;       // rows of p
-constexpr int kSLd = kMaxM + 4;          // rows of the f32 logits
 constexpr int kKvK = 64;                 // K depth staged per step (kv proj)
 
 // out[R, J] = bf16(a[R, K] . w[J, K]^T + bias); a block per 32 x 128 tile,
@@ -194,40 +194,6 @@ __global__ void __launch_bounds__(kTcThreads)
       if (row < R)
         out[(size_t)row * J + col] = __float2bfloat16(v + __bfloat162float(bias[col]));
     });
-}
-
-// p = bf16(softmax_f32(ss * scale)) row by row, one warp per row, for rows
-// 0..rows-1: keys past M are masked, p is 0 from M to mp (the MMA padding).
-__device__ __forceinline__ void softmax_rows_bf16(const float* ss, bf16* ps, int rows,
-                                                  int M, int mp, float scale) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < rows; r += blockDim.x / 32) {
-    float v[kMaxM / 32];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kMaxM / 32; ++j) {
-      const int m = lane + 32 * j;
-      v[j] = m < M ? ss[r * kSLd + m] * scale : -INFINITY;
-      mx = fmaxf(mx, v[j]);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxM / 32; ++j) {
-      v[j] = expf(v[j] - mx);  // masked keys: exp(-inf) = 0
-      sum += v[j];
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-#pragma unroll
-    for (int j = 0; j < kMaxM / 32; ++j) {
-      const int m = lane + 32 * j;
-      if (m < mp) ps[r * kPLd + m] = __float2bfloat16(v[j] / sum);
-    }
-  }
 }
 
 // The K/V projection kv = T(kv_in . Wkv^T + bkv), (R = B*M, 2C), into the

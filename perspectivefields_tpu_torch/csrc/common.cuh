@@ -17,7 +17,6 @@ constexpr int kPad = 8;  // bf16 row padding (16 bytes)
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 __host__ __device__ constexpr int ceil16(int n) { return (n + 15) / 16 * 16; }

@@ -1,6 +1,7 @@
 // The Hopper GEMM building block of the bf16 ConvNeXt-block (convnext_block.cu),
-// whole-MiT-block (fused_block.cu), MixFFN (mixffn.cu) and attention
-// (fused_attention.cu) kernels: warpgroup MMAs (wgmma) with
+// whole-MiT-block (fused_block.cu), MixFFN (mixffn.cu), attention
+// (fused_attention.cu), stage-1 attention (stage1_attention.cu) and decoder-
+// tail (decoder_tail.cu) kernels: warpgroup MMAs (wgmma) with
 // f32 accumulators in registers, operands in 64-byte-swizzled shared memory,
 // and a ring of weight tiles that one producer thread fills by TMA, each
 // stage behind a "full" and an "empty" mbarrier. In a thread-block cluster
@@ -78,7 +79,8 @@ __device__ __forceinline__ int swz_at(int rows, int row, int k) {
 
 // ---------------------------------------------------------------------------
 // wgmma: descriptors, fences, m64n32k16 / m64n64k16 with A from shared
-// memory (ss), m64n64k16 with A from registers (rs), f32 accumulators
+// memory (ss) or from registers (rs), f32 accumulators; A loaded into
+// registers from rows gathered per lane (ldsm_a)
 // ---------------------------------------------------------------------------
 
 // K-major, 64-byte swizzle, 8-row groups 512 bytes apart; ``p`` is the first
@@ -184,6 +186,37 @@ __device__ __forceinline__ void load_a(const bf16* base, int k, uint32_t (&a)[4]
   a[3] = *reinterpret_cast<const uint32_t*>(base + swz_at(64, r + 8, c + 8));
 }
 
+// The register A operand at a row shift (ldmatrix .x4): lane L supplies
+// the address of its A row ``ldsm_row()`` of the m64 tile, which the caller
+// maps to any row ``row`` of a swizzled k-block of 32 columns (a
+// convolution's tap, a halo's pixels gathered). A wgmma shared-memory
+// descriptor cannot start at such a row: the swizzle phase (row >> 1) & 3
+// moves with the shift. k (k % 16 == 0) is the k16 step's column.
+__device__ __forceinline__ int ldsm_row() {
+  const int t = threadIdx.x % 128;
+  return 16 * (t / 32) + (t % 8) + 8 * ((t / 8) % 2);
+}
+__device__ __forceinline__ void ldsm_a(const bf16* kblock, int row, int k, uint32_t (&a)[4]) {
+  const uint32_t addr = smem_u32(kblock + swz(row, k % kKb + 8 * ((threadIdx.x % 32) / 16)));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// m64n32k16 with A from registers (a conv's 32 output channels).
+__device__ __forceinline__ void mma_n32_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                           int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, {%16,%17,%18,%19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
 // ---------------------------------------------------------------------------
 // mbarriers, TMA, barriers
 // ---------------------------------------------------------------------------
@@ -215,6 +248,18 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, int rank) {
       "mbarrier.arrive.shared::cluster.b64 _, [remAddr32];\n}\n" ::"r"(
           smem_u32(bar)),
       "r"(rank)
+      : "memory");
+}
+
+// mbar_arrive_cluster where ``pred`` holds, with no branch: a lane-dependent
+// branch while wgmma operands are in flight makes ptxas serialise the
+// kernel's wgmma (C7518).
+__device__ __forceinline__ void mbar_arrive_cluster_if(uint64_t* bar, int rank, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 remAddr32;\nsetp.ne.b32 p, %2, 0;\n"
+      "mapa.shared::cluster.u32 remAddr32, %0, %1;\n"
+      "@p mbarrier.arrive.shared::cluster.b64 _, [remAddr32];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(rank), "r"((int)pred)
       : "memory");
 }
 
@@ -291,6 +336,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
         "l"(m), "r"(smem_u32(bar)), "h"(mask), "r"(col), "r"(row)
         : "memory");
   }
+}
+
+// 4-D TMA load of the box at channel c, pixel (x, y) of image b of a
+// channels-last map (make_map_nhwc) into ``dst``, completing on ``bar``;
+// x and y may lie outside the image (the box's pixels there arrive as zeros).
+__device__ __forceinline__ void tma_load_nhwc(void* dst, const CUtensorMap* map, int c, int x,
+                                              int y, int b, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c), "r"(x), "r"(y), "r"(b)
+      : "memory");
 }
 
 // The f32 sum, in rank order, of the float4 at ``off`` floats into the
@@ -498,6 +555,57 @@ inline int make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int b
   next = (next + 1) % 64;
   if (count < 64) ++count;
   return 0;
+}
+
+// A tensor map of a channels-last (B, H, W, C) bf16 map (C % 8 == 0) whose
+// box is 32 channels x box_w x box_h pixels of one image, 64-byte swizzle,
+// zeros past every edge (channels past C too): a box lands as box_h x
+// box_w rows of one swizzled k-block. Cached as make_map's maps are.
+inline int make_map_nhwc(CUtensorMap* map, const void* ptr, int B, int H, int W, int C, int box_w,
+                         int box_h) {
+  struct Entry {
+    CUtensorMap map;
+    const void* ptr;
+    int B, H, W, C, box_w, box_h;
+  };
+  static Entry cache[16];
+  static int count = 0, next = 0;
+  static std::mutex mutex;
+  std::lock_guard<std::mutex> lock(mutex);
+  for (int i = 0; i < count; ++i) {
+    const Entry& e = cache[i];
+    if (e.ptr == ptr && e.B == B && e.H == H && e.W == W && e.C == C && e.box_w == box_w &&
+        e.box_h == box_h) {
+      *map = e.map;
+      return 0;
+    }
+  }
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kKb, (cuuint32_t)box_w, (cuuint32_t)box_h, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  cache[next] = {*map, ptr, B, H, W, C, box_w, box_h};
+  next = (next + 1) % 16;
+  if (count < 16) ++count;
+  return 0;
+}
+
+// The card's SM count, read once per device.
+inline int sm_count() {
+  static int counts[64] = {0};
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 || device >= 64) return 0;
+  if (counts[device] == 0)
+    cudaDeviceGetAttribute(&counts[device], cudaDevAttrMultiProcessorCount, device);
+  return counts[device];
 }
 
 // Set ``kernel``'s dynamic shared-memory size to ``smem`` unless that is

@@ -302,6 +302,44 @@ def test_stage1_kernel_matches_plain_version(cuda_device, b, n, m, dtype, with_r
     _assert_kernel_close(got, want, dtype)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_residual", [False, True], ids=["plain", "residual"])
+@pytest.mark.parametrize("n", [1, 64, 6400, 6401])
+@pytest.mark.parametrize("m", [1, 100, 128])
+def test_stage1_kernel_at_every_key_and_token_count(cuda_device, m, n, with_residual):
+    """bf16 on the wrapper's own plan: M = 1, 100 and 128 keys (the padded
+    keys' logits at -inf), N = 1, 64, 6400 and 6401 tokens (a last tile of
+    one row, whose other rows come from the next image or past the end)."""
+    b = 3 if n < 6400 else 2
+    args = _args(b, n, m, 64, torch.bfloat16, seed=m + n)
+    res = _args(b, n, m, 64, torch.bfloat16, seed=1)[0] if with_residual else None
+    before = s1.LAUNCHES
+    got = s1.stage1_attention(*args, 0.125, residual=res)
+    torch.cuda.synchronize()
+    assert s1.LAUNCHES == before + 1
+    want = s1.stage1_attention_reference(
+        *[a.float() for a in args], 0.125, residual=None if res is None else res.float())
+    _assert_kernel_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 7, 50])
+def test_stage1_kernel_at_every_block_count(cuda_device, g):
+    """bf16 with 1 to 50 blocks per image forced: runs of 50 tiles down to
+    one, and warpgroups with no tile at all (g = 50 over 51 tiles)."""
+    args = _args(2, 3201, 100, 64, torch.bfloat16, seed=g)
+    res = _args(2, 3201, 100, 64, torch.bfloat16, seed=2)[0]
+    got = s1.launch(*args, 0.125, res, g)
+    torch.cuda.synchronize()
+    want = s1.stage1_attention_reference(*[a.float() for a in args], 0.125, residual=res.float())
+    _assert_kernel_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_stage1_smem_count_matches_kernel(cuda_device):
+    assert s1.smem_bytes() == s1.kernel_smem_bytes()
+
+
 def _block_args(b, h, w, c, m, dtype, seed=0):
     """ln1x, kv_in, res and the block's weights, scaled as in
     tests/test_fused_block.py; torch layouts."""
@@ -523,6 +561,60 @@ def test_decoder_tail_kernel_matches_plain_version(cuda_device, b, h, w, ca, cl,
     assert dt.LAUNCHES == before + 1
     assert got.shape == (b, 2 * h, 2 * w, co) and got.dtype == dtype
     _assert_kernel_close(got, dt.decoder_tail_reference(*[a.float() for a in args]), dtype)
+
+
+# the bf16 decoder tail at every prediction width the kernel's 1x1 pads
+# differently (one to three 64-column chunks, odd and even Co)
+TAIL_COS = [1, 2, 8, 9, 73, 180, 192]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("co", TAIL_COS)
+@pytest.mark.parametrize("b,h,w", [(3, 13, 9), (2, 1, 1), (1, 24, 30)])
+def test_decoder_tail_kernel_on_ragged_maps_at_every_width(cuda_device, b, h, w, co):
+    """bf16 on the wrapper's own plan: a 13x9 map whose every tile touches a
+    border, a 1x1 map (the whole window is padding but one pixel), and a map
+    the 8x10 tile does not divide."""
+    args = _tail_args(b, h, w, 32, 8, co, torch.bfloat16, seed=co + h)
+    before = dt.LAUNCHES
+    got = dt.decoder_tail(*args)
+    torch.cuda.synchronize()
+    assert dt.LAUNCHES == before + 1
+    _assert_kernel_close(got, dt.decoder_tail_reference(*[a.float() for a in args]), torch.bfloat16)
+
+
+# (tile, cluster) of the bf16 decoder tail: the flagship's 8x10 tile and
+# the planner's other shapes (the widest halo and fine-output counts, a
+# single pixel), each at every multicast cluster
+TAIL_TILES = [(8, 10), (6, 14), (14, 6), (9, 9), (1, 3), (1, 1), (2, 30)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("tile", TAIL_TILES)
+def test_decoder_tail_kernel_at_every_tile_and_cluster(cuda_device, tile, cluster):
+    """bf16 at forced tiles and clusters on a ragged 2x(19x23) map, grids
+    smaller than the tiles (each block walks several, the last ones past
+    the end redo the last tile and write nothing), Co = 73 and 2."""
+    th, tw = tile
+    for co in (73, 2):
+        args = _tail_args(2, 19, 23, 64, 8, co, torch.bfloat16, seed=th * tw + cluster)
+        tiles = dt.tiles_of(2, 19, 23, th, tw)
+        blocks = max(cluster, min(tiles, 3 * cluster) // cluster * cluster)
+        stages = 2 if th * tw > 1 else 3
+        assert dt.smem_bytes(th, tw, co, stages) <= dt.SMEM_LIMIT
+        got = dt.launch(*args, th, tw, cluster, blocks, stages)
+        torch.cuda.synchronize()
+        _assert_kernel_close(got, dt.decoder_tail_reference(*[a.float() for a in args]),
+                             torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_decoder_tail_smem_count_matches_kernel(cuda_device):
+    for th, tw in TAIL_TILES:
+        for co in (1, 64, 65, 192):
+            for stages in (2, 3):
+                assert dt.smem_bytes(th, tw, co, stages) == dt.kernel_smem_bytes(th, tw, co, stages)
 
 
 @pytest.mark.cuda

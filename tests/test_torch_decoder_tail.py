@@ -9,6 +9,7 @@ kernel itself runs only on a card: see tests/test_torch_cuda.py and
 """
 
 import importlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +19,8 @@ import torch
 from perspectivefields_tpu.kernels.decoder_tail import decoder_tail as jax_decoder_tail
 from perspectivefields_tpu.kernels.decoder_tail import xla_decoder_tail
 from perspectivefields_tpu_torch import kernels
+from perspectivefields_tpu_torch.kernels import build as build_mod
+from perspectivefields_tpu_torch.kernels import hopper_plan as hp
 from perspectivefields_tpu_torch.models.common import init_random_
 from perspectivefields_tpu_torch.models.heads import SegFormerDecoder
 
@@ -152,13 +155,15 @@ def _bad_case(name):
         args[3] = args[3][:32].contiguous()
     elif name == "misaligned":  # a contiguous view 4 bytes into its storage
         args[0] = torch.zeros(5 * 4 * 16 + 1)[1:].view(1, 5, 4, 16)
+    elif name == "bf16_ca_not_32":  # ll's channels must start a k-block of the TMA window
+        args = [a.to(torch.bfloat16) for a in args]
     return args
 
 
 @pytest.mark.parametrize(
     "name",
     ["channels_not_8", "conv0_width", "too_many_classes", "float16", "mixed_dtype",
-     "non_contiguous", "ll_size", "bias_shape", "misaligned"],
+     "non_contiguous", "ll_size", "bias_shape", "misaligned", "bf16_ca_not_32"],
 )
 def test_kernel_arg_check_refuses(name):
     with pytest.raises(ValueError):
@@ -171,3 +176,83 @@ def test_kernel_arg_check_takes_the_heads_shapes():
         dt.check_kernel_args(*args)
         args[6] = args[6].reshape(co, 32)  # the 1x1 weight as a matrix
         dt.check_kernel_args(*args)
+
+
+# the planner: (b, h, w) coarse maps, the heads' widths and ragged ones
+PLAN_MAPS = [(8, 160, 160, 256, 64), (32, 160, 160, 256, 64), (3, 13, 9, 32, 8),
+             (2, 1, 1, 32, 8), (1, 24, 30, 64, 8), (5, 7, 200, 256, 64)]
+
+
+@pytest.mark.parametrize("b,h,w,ca,cl", PLAN_MAPS)
+def test_plan_tiles_cover_the_map(b, h, w, ca, cl):
+    """The tile fits the kernel (a halo of at most 128 pixels, at most 384
+    fine outputs), the tiles cover the map, the persistent grid is a
+    multiple of the cluster and walks every tile in as few steps as it can,
+    and multicast adds no step over single blocks."""
+    for co in (1, 2, 73, 180, 192):
+        p = dt.plan(b, h, w, ca, cl, co)
+        th, tw = p["tile"]
+        assert (th + 2) * (tw + 2) <= dt.MAX_HALO and 4 * th * tw <= dt.MAX_FINE
+        tiles = dt.tiles_of(b, h, w, th, tw)
+        assert -(-h // th) * th >= h and -(-w // tw) * tw >= w and tiles == b * -(-h // th) * -(-w // tw)
+        assert p["blocks"] % p["cluster"] == 0 and p["blocks"] <= 132
+        assert p["blocks"] * p["iters"] >= tiles > p["blocks"] * (p["iters"] - 1)
+        assert p["iters"] == -(-tiles // min(132, tiles))
+        assert 2 <= p["stages"] <= hp.MAX_STAGES
+
+
+@pytest.mark.parametrize("b,h,w,ca,cl", PLAN_MAPS)
+def test_plan_fits_shared_memory_at_every_width(b, h, w, ca, cl):
+    for co in range(1, dt.MAX_CO + 1):
+        p = dt.plan(b, h, w, ca, cl, co)
+        assert p["smem"] == dt.smem_bytes(*p["tile"], co, p["stages"]) <= hp.SMEM_LIMIT
+        assert dt.smem_bytes(*p["tile"], co, p["stages"] + 1) > hp.SMEM_LIMIT or p["stages"] == hp.MAX_STAGES
+
+
+@pytest.mark.parametrize("co", [2, 1, 73, 180])
+def test_plan_at_the_flagship(co):
+    """PERF.md's plan at the heads' 160x160 grid, B=8: 8x10 tiles (2,560)
+    over 128 persistent blocks in clusters of 8 (the card may run fewer),
+    20 tiles each, a ring of 2 stages; w0 read once per cluster and step."""
+    p = dt.plan(8, 160, 160, 256, 64, co)
+    assert (p["tile"], p["cluster"], p["blocks"], p["iters"], p["stages"]) == ((8, 10), 8, 128, 20, 2)
+    w0 = 9 * 64 * 320 * 2
+    assert p["weight_bytes"] == 16 * 20 * w0 + 128 * (dt.W1_BYTES + -(-co // 64) * 64 * 32 * 2)
+    # cluster counts a card may report: at most 12 clusters of 8 would add a step
+    fits = ((8, 12), (4, 33), (2, 66), (1, 132))
+    assert dt.plan(8, 160, 160, 256, 64, co, 132, fits)["cluster"] == 4
+    # the H100's own counts at this tile (PERF.md): clusters of 2, 132 blocks x 20 tiles
+    p = dt.plan(8, 160, 160, 256, 64, co, 132, ((8, 15), (4, 30), (2, 66), (1, 132)))
+    assert (p["tile"], p["cluster"], p["blocks"], p["iters"]) == ((8, 10), 2, 132, 20)
+
+
+def test_plan_counts_weight_bytes_per_cluster():
+    """Single blocks read w0 once per tile walked; a cluster of k once per k."""
+    one = dt.plan(8, 160, 160, 256, 64, 2, 132, ((8, 0), (4, 0), (2, 0), (1, 132)))
+    assert one["cluster"] == 1 and one["blocks"] == 132 and one["iters"] == 20
+    assert one["weight_bytes"] == 132 * 20 * 9 * 64 * 320 * 2 + 132 * (dt.W1_BYTES + 64 * 32 * 2)
+
+
+def test_plan_refuses_too_many_classes():
+    with pytest.raises(ValueError, match="Co"):
+        dt.plan(1, 8, 8, 32, 8, dt.MAX_CO + 1)
+
+
+def test_smem_counts_the_layout():
+    """TailLayout at the flagship's tile: 2 stages of w0's 9 tap tiles (36
+    KB) and the 12x14 window (11 KB), w1 (36 KB), wp, u (18x22 pixels x 64
+    channels, two 25 KB k-blocks), c0 (128 rows of 144 bytes), biases,
+    the upsample's tables, barriers and the base's alignment."""
+    assert dt.smem_bytes(8, 10, 2) == 2 * (36864 + 11264) + 36864 + 4096 + 2 * 25600 + 18432 + (
+        64 + 32 + 64) * 4 + 2 * 96 * 16 + 5 * 8 + 1024
+
+
+def test_phase_stamps_are_named():
+    """Every PF_STAMP id in the kernel's source has a name in chip_smoke.py
+    --phases' table, and every named id is stamped."""
+    import chip_smoke
+
+    src = (build_mod.CSRC / "decoder_tail.cu").read_text()
+    ids = {int(i) for i in re.findall(r"PF_STAMP\((\d+)\)", src)}
+    ids |= {int(i) + 10 * j for i in re.findall(r"PF_STAMP_STEP\((\d+),", src) for j in range(8)}
+    assert ids == set(chip_smoke.PHASE_NAMES["decoder_tail"])

@@ -7,6 +7,8 @@ wrapper are checked here. The CUDA kernel itself runs only on a card: see
 tests/test_torch_cuda.py and ``python3 chip_smoke.py``.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ import torch
 from perspectivefields_tpu.kernels.fused_attention import _xla_reference
 from perspectivefields_tpu.kernels.stage1_attention import stage1_attention as jax_stage1
 from perspectivefields_tpu_torch.kernels import build as build_mod
+from perspectivefields_tpu_torch.kernels import hopper_plan as hp
 from perspectivefields_tpu_torch.kernels import stage1_attention as s1
 from perspectivefields_tpu_torch.models.common import init_random_
 from perspectivefields_tpu_torch.models.mit import SRAttention
@@ -156,3 +159,49 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(build_mod, "BUILD_DIR", tmp_path)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build_mod.build("stage1_attention")
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 8, 32, 200])
+@pytest.mark.parametrize("n", [1, 63, 64, 999, 6400, 6401])
+def test_plan_covers_every_tile(b, n):
+    """Each image's 64-row tiles are shared out in runs, one run per
+    consumer warpgroup (two a block): the runs cover the image, no block
+    is without a tile, the grid stays within the SMs where the batch
+    allows, and no smaller run would fit them."""
+    p = s1.plan(b, n)
+    g, t = p["blocks_per_image"], p["tiles_per_group"]
+    per_image = -(-n // 64)
+    assert p["blocks"] == b * g and 2 * g * t >= per_image > (2 * g - 2) * t
+    assert p["blocks"] <= max(132, b)
+    most = max(1, min(per_image, 132 // b))
+    assert t == min(s1.unit_tiles(n, k) for k in range(1, most + 1))
+
+
+@pytest.mark.parametrize("m", range(1, 129))
+def test_shared_memory_fits_at_every_key_count(m):
+    """The block pads the keys to 128, so its shared memory is one size for
+    every M the kernel takes, within the card's limit."""
+    args = _torch_args(_inputs(np.random.default_rng(m), 1, 1, m))
+    s1.check_kernel_args(*args)
+    assert s1.plan(8, 6400)["smem"] == s1.smem_bytes() <= hp.SMEM_LIMIT
+
+
+def test_plan_at_the_flagship():
+    """PERF.md's plan: B=8 (N = 6400, 100 tiles an image) takes 13 blocks an
+    image, 4 tiles a warpgroup; B=32 4 blocks an image, 13 tiles; each block
+    reads the weights (32 KB) and its image's kv_in (16 KB) once."""
+    p8, p32 = s1.plan(8, 6400), s1.plan(32, 6400)
+    assert (p8["blocks_per_image"], p8["tiles_per_group"], p8["blocks"]) == (13, 4, 104)
+    assert (p32["blocks_per_image"], p32["tiles_per_group"], p32["blocks"]) == (4, 13, 128)
+    assert p8["weight_bytes"] == 104 * (32768 + 16384)
+
+
+def test_phase_stamps_are_named():
+    """Every PF_STAMP id in the kernel's source has a name in chip_smoke.py
+    --phases' table, and every named id is stamped."""
+    import chip_smoke
+
+    src = (build_mod.CSRC / "stage1_attention.cu").read_text()
+    ids = {int(i) for i in re.findall(r"PF_STAMP\((\d+)\)", src)}
+    ids |= {int(i) + 10 * j for i in re.findall(r"PF_STAMP_STEP\((\d+),", src) for j in range(8)}
+    assert ids == set(chip_smoke.PHASE_NAMES["stage1_attention"])
