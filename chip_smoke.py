@@ -39,11 +39,26 @@ Phases (each fails loudly; nothing is caught and turned into success):
      with JAX's three rewrites against their plain dataflow, and their bf16
      device times at B=8 and B=32;
   5. throughput of inference_batch at B=32, bf16: plain, kernel, fused and
-     block paths in interleaved windows, with a split of one batch (the
-     device forward with the heads' rewrites, and once without);
+     block paths in interleaved windows, then each path's split of 5 calls
+     (host preprocess, device forward, postprocess + copies, synchronized
+     at the network's call), and the kernel path's device forward with the
+     heads' rewrites and once without;
   6. the other four zoo versions in bf16 with seeded random weights: a batch
      of 4 640x640 images and one 480x640 image each, against each version's
-     output contract.
+     output contract;
+  7. serving, on the flagship in bf16 (default path): (a)
+     PerspectiveFields(device_preprocess=True) on 8 640x640 images and one
+     480x640 image: the device-resized network input within 1 LSB of the
+     host's bit-exact resize (with TF32 on), the output contract, 25
+     fused_attention launches a forward; (b) serving.BatchPredictor over 72
+     640x640 images at B=32 (2 full batches and a padded tail of 8) in
+     every combination of wire u8/f32, out_wire None/f16/u8, select
+     None/parameters and depth 1/2, each against inference_batch's raw
+     network-size outputs on the same batches (f32 wire equal, u8 wire
+     within the bf16 tolerance, f16 out-wire within 2e-3 and u8 out-wire
+     within 1/255 of the same wire's f32 readback), 25 launches a batch,
+     the forward's outputs on the card; (c) bench_serving's five modes at
+     B=32, depth 1 and 2, after its host<->device link probe.
 
 The line before the last is a JSON object with the kernels' launch counts,
 errors, times and bounds; the last line is {"ok": true, "device": {...}}.
@@ -63,6 +78,15 @@ flagship's B=8 shapes:
         while the card is still busy), beside the device time back to back
         and from a CUDA graph, for the package under ROOT (default: this
         checkout; another commit unpacked with ``git archive`` compares).
+
+And one of inference_batch, for the package under ROOT in the same way:
+
+    python3 chip_smoke.py --split [ROOT]
+        the flagship at B=32 on the default bf16 path: img/s, the split of
+        each call into host preprocess, device forward and postprocess +
+        copies (synchronized at the network's call), and the pinned host
+        memory held while the results of 8 calls are kept (``[split]``
+        lines).
 """
 
 from __future__ import annotations
@@ -82,7 +106,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from perspectivefields_tpu_torch import PerspectiveFields, kernels, native
+from perspectivefields_tpu_torch import PerspectiveFields, bench_serving, kernels, native
 from perspectivefields_tpu_torch.config import model_zoo
 from perspectivefields_tpu_torch.kernels import build as kbuild
 from perspectivefields_tpu_torch.kernels import convnext_block as cb
@@ -95,6 +119,8 @@ from perspectivefields_tpu_torch.models import PersNet
 from perspectivefields_tpu_torch.models.common import init_random_
 from perspectivefields_tpu_torch.models.convnext import ConvNeXtBlock
 from perspectivefields_tpu_torch.models.mit import MixFFN, SRAttention
+from perspectivefields_tpu_torch.bench_serving import card_line
+from perspectivefields_tpu_torch.serving import BatchPredictor
 
 # the package exports the function decoder_tail under its module's name
 dt = importlib.import_module("perspectivefields_tpu_torch.kernels.decoder_tail")
@@ -149,18 +175,14 @@ F32_TOL = 1e-4  # atol and rtol, f32 kernel vs f32 plain version
 BF16_REL_TOL = 1e-2  # max|d| / max|ref|, bf16 kernel vs f32 plain version
 FIELD_TOL, DEGREE_TOL = 5e-4, 1e-3  # tests/test_reference_parity.py:104-133
 TIMING_CALLS = 30
+# serving phase: B=32 over 72 images (2 full batches and a padded tail of 8)
+SERVE_BATCH, SERVE_IMAGES = 32, 72
+U8_WIRE_TOL = 1 / 255 + 1e-6  # the u8 output wire's step, plus f32 rounding
+F16_WIRE_TOL = 2e-3  # the f16 output wire, relative to max(1, |x|)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def probe() -> str:
@@ -1081,26 +1103,213 @@ def throughput_phase(sd, card: str) -> None:
             m.inference_batch(batch)
         torch.cuda.synchronize()
         rates[name].append(32 * reps / (time.perf_counter() - t0))
-    # split of one batch: host preprocess, device forward, postprocess + copies
-    mean, std = models["kernel"]._pixel_mean, models["kernel"]._pixel_std
-    stack = np.stack(batch)
-    t0 = time.perf_counter()
-    net_in = native.preprocess_batch(stack, 320, 320, mean, std)
-    pre_s = time.perf_counter() - t0
-    x = torch.from_numpy(net_in).to("cuda", torch.bfloat16)
+    x = torch.from_numpy(native.preprocess_batch(
+        np.stack(batch), 320, 320, models["kernel"]._pixel_mean, models["kernel"]._pixel_std,
+    )).to("cuda", torch.bfloat16)
     with torch.inference_mode():
-        fwd = {k: median_ms(lambda: m.model(x), reps=5, warmup=1) for k, m in models.items()}
+        fwd = median_ms(lambda: models["kernel"].model(x), reps=5, warmup=1)
         set_head_flags(models["kernel"].model, False)
         plain_heads = median_ms(lambda: models["kernel"].model(x), reps=5, warmup=1)
         set_head_flags(models["kernel"].model, True)
     log(f"[throughput] kernel path device forward with the heads' plain dataflow: {plain_heads:.1f} ms "
-        f"(with JAX's three head rewrites, the default: {fwd['kernel']:.1f} ms; B=32 bf16, {card})")
-    for name in models:
-        total_s = 32 / statistics.mean(rates[name])
+        f"(with JAX's three head rewrites, the default: {fwd:.1f} ms; B=32 bf16, {card})")
+    for name, m in models.items():
         log(f"[throughput] {name}: {', '.join(f'{r:.2f}' for r in rates[name])} img/s "
-            f"(B=32 640x640 bf16, {card}); per batch {total_s * 1e3:.1f} ms = host preprocess "
-            f"{pre_s * 1e3:.1f} ms ({native.backend()}) + device forward {fwd[name]:.1f} ms "
-            f"+ postprocess/copies {(total_s - pre_s) * 1e3 - fwd[name]:.1f} ms")
+            f"(B=32 640x640 bf16, {card}; host preprocess {native.backend()}); "
+            f"{split_line(inference_split(m, batch, reps))}")
+
+
+class _SyncedModule:
+    """A model's network behind a synchronize and a clock mark on each side
+    of its call: one inference_batch call then splits into the host
+    preprocess with the copy to the card, the device forward, and the
+    postprocess with the copies back, all three timed in the same call."""
+
+    def __init__(self, inner):
+        self.inner, self.marks = inner, []
+
+    def __call__(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        self.marks.append(time.perf_counter())
+        out = self.inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.marks.append(time.perf_counter())
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def inference_split(m, batch, reps: int) -> dict:
+    """ms of each stage of ``m.inference_batch(batch)`` (any tree's
+    PerspectiveFields: only its ``model`` attribute is wrapped) over
+    ``reps`` calls, each stage's list of times: ``preprocess`` (entry to the
+    network's call: host preprocess, staging, copy to the card, normalize),
+    ``forward`` (the network, synchronized on both sides), ``postprocess``
+    (postprocess, copies back, per-image numpy) and ``total``."""
+    inner = m.model
+    m.model = timed = _SyncedModule(inner)
+    split = {"preprocess": [], "forward": [], "postprocess": [], "total": []}
+    try:
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.inference_batch(batch)
+            t3 = time.perf_counter()
+            t1, t2 = timed.marks[-2:]
+            for key, a, b in (("preprocess", t0, t1), ("forward", t1, t2),
+                              ("postprocess", t2, t3), ("total", t0, t3)):
+                split[key].append((b - a) * 1e3)
+    finally:
+        m.model = inner
+    return split
+
+
+def split_line(split: dict) -> str:
+    return (f"split of {len(split['total'])} calls, mean (min-max) ms: " + " + ".join(
+        f"{k} {statistics.mean(v):.2f} ({min(v):.2f}-{max(v):.2f})"
+        for k, v in split.items() if k != "total")
+        + f" = {statistics.mean(split['total']):.2f} ms a batch (synchronized at the network's call)")
+
+
+def _serving_launch_check(tag: str, forwards: int) -> None:
+    launches = {name: mod.LAUNCHES for name, mod in KERNELS.items()}
+    if launches != _expected("default", forwards):
+        raise AssertionError(f"[serving] {tag}: launches {launches}, want {_expected('default', forwards)}")
+
+
+def _device_preprocess_check(sd, rng, card: str) -> None:
+    """(a): device_preprocess=True on 8 640x640 images and one 480x640."""
+    model = PerspectiveFields(VERSION, params=sd, compute_dtype="bfloat16", device="cuda",
+                              device_preprocess=True)
+    batch = list(rng.integers(0, 256, size=(8, 640, 640, 3), dtype=np.uint8))
+    single = rng.integers(0, 256, size=(480, 640, 3), dtype=np.uint8)
+    # the resize is elementwise f32: the global TF32 flags must not reach it
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    worst = 0.0
+    for imgs in (np.stack(batch), single[None]):
+        got = model._device_resize(*imgs.shape[1:3])(torch.from_numpy(imgs).cuda()).cpu().numpy()
+        for im, g in zip(imgs, got):
+            exact = native.pil_resize_uint8(im, 320, 320).astype(np.float32)
+            worst = max(worst, float(np.abs(np.round(g) - exact).max()))
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    log(f"[serving] device_preprocess: device resize (TF32 on) vs the host's bit-exact PIL "
+        f"resize, max |round(x) - exact| = {worst:.0f} LSB (bound 1)")
+    if worst > 1.0:
+        raise AssertionError("device resize beyond 1 LSB of the host's exact resize")
+    model.inference_batch(batch)  # warm-up, before the count
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    preds = model.inference_batch(batch) + [model.inference(single)]
+    torch.cuda.synchronize()
+    dt_s = time.perf_counter() - t0
+    _serving_launch_check("device_preprocess", 2)
+    for p in preds[:-1]:
+        check_contract(p, (640, 640), model.cfg)
+    check_contract(preds[-1], (480, 640), model.cfg)
+    log(f"[serving] device_preprocess: 9 images in 2 forwards ({dt_s * 1e3:.1f} ms, {card}), "
+        f"fused_attention {fa.LAUNCHES} launches, output contract ok; resize operands cached for "
+        f"{sorted(model._resize_cache._d)}")
+
+
+def _compare_serving(tag: str, got: list, want: list, tol) -> float:
+    """Max |d| over every image and key of ``want`` (the keys must match);
+    raises where |d| > tol(key, ref)."""
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        if set(g) != set(w):
+            raise AssertionError(f"[serving] {tag}: keys {sorted(g)}, want {sorted(w)}")
+        for key, wv in w.items():
+            if g[key].dtype != np.float32 or g[key].shape != wv.shape:
+                raise AssertionError(f"[serving] {tag} {key}: {g[key].dtype} {g[key].shape}")
+            d = np.abs(g[key] - wv)
+            worst = max(worst, float(d.max()))
+            if (d > tol(key, wv)).any():
+                raise AssertionError(f"[serving] {tag} {key}: max|d| {d.max()} beyond its bound")
+    return worst
+
+
+def _batch_predictor_check(model, imgs, card: str) -> None:
+    """(b): every wire / out_wire / select / depth combination against
+    inference_batch on the same batches (the tail padded as the predictor
+    pads it: the last image repeated)."""
+    ref = []
+    for i in range(0, len(imgs), SERVE_BATCH):
+        chunk = imgs[i:i + SERVE_BATCH]
+        ref += model.inference_batch(chunk + [chunk[-1]] * (SERVE_BATCH - len(chunk)))[:len(chunk)]
+    raw = {k for k, v in ref[0].items() if not k.endswith(("_original", "_mode"))}
+    ref = [{k: r[k] for k in raw} for r in ref]
+    params = bench_serving.PARAM_KEYS
+    forwards = -(-len(imgs) // SERVE_BATCH)
+    base = {}  # wire -> its f32 readback of every key
+    for wire in ("f32", "u8"):
+        for out_wire in (None, "f16", "u8"):
+            for select in (None, params):
+                for depth in (1, 2):
+                    bp = BatchPredictor(model, batch_size=SERVE_BATCH, wire=wire, select=select,
+                                        depth=depth, out_wire=out_wire)
+                    devices = set()
+                    fwd = bp._fwd
+
+                    def spy(x, fwd=fwd, devices=devices):
+                        out = fwd(x)
+                        devices.update([x.device.type] + [v.device.type for v in out.values()])
+                        return out
+
+                    bp._fwd = spy
+                    torch.cuda.synchronize()
+                    _reset_counts()
+                    outs = bp.predict(imgs)
+                    torch.cuda.synchronize()
+                    tag = f"wire={wire} out_wire={out_wire} select={'params' if select else 'all'} depth={depth}"
+                    _serving_launch_check(tag, forwards)
+                    if devices != {"cuda"} or not bp._slots[0][0].is_pinned():
+                        raise AssertionError(f"[serving] {tag}: forward on {devices}, or slot not pinned")
+                    keys = set(select or raw)
+                    if out_wire is None:
+                        want = [{k: r[k] for k in keys} for r in ref]
+                        if wire == "f32":  # the same inputs as inference_batch: equal
+                            err = _compare_serving(tag, outs, want, lambda k, w: 0.0)
+                        else:
+                            err = _compare_serving(tag, outs, want,
+                                                   lambda k, w: BF16_REL_TOL * np.abs(w).max())
+                        if select is None and depth == 1:
+                            base[wire] = outs
+                        note = "vs inference_batch"
+                    else:
+                        want = [{k: b[k] for k in keys} for b in base[wire]]
+
+                        def tol(k, w):
+                            unit = out_wire == "u8" and k in ("pred_gravity", "pred_latitude")
+                            return U8_WIRE_TOL if unit else F16_WIRE_TOL * np.maximum(1.0, np.abs(w))
+
+                        err = _compare_serving(tag, outs, want, tol)
+                        note = f"vs the {wire} wire's f32 readback"
+                    stages = bp.timer.summary()
+                    log(f"[serving] BatchPredictor {tag}: {len(outs)} images, {forwards} batches, "
+                        f"fused_attention {fa.LAUNCHES}, max|d| {note} {err:.3e}; device_wait "
+                        f"{stages['device_wait']['seconds']:.4f} s ({card})")
+
+
+def serving_phase(sd, card: str) -> None:
+    rng = np.random.default_rng(SEED + 9)
+    _device_preprocess_check(sd, rng, card)
+    model = PerspectiveFields(VERSION, params=sd, compute_dtype="bfloat16", device="cuda")
+    imgs = list(rng.integers(0, 256, size=(SERVE_IMAGES, 640, 640, 3), dtype=np.uint8))
+    _batch_predictor_check(model, imgs, card)
+    # (c) bench_serving's modes, on this model and these images
+    link = bench_serving.link_probe()
+    log(f"[serving] link ({card}): " + ", ".join(f"{k} {v:.1f}" for k, v in link.items()))
+    timed = imgs[:2 * SERVE_BATCH] + imgs[:2 * SERVE_BATCH]
+    for depth in (1, 2):
+        for name, (wire, select, out_wire) in bench_serving.MODES.items():
+            r = bench_serving.run_mode(model, timed, SERVE_BATCH, wire, select,
+                                       imgs[:SERVE_BATCH], depth, out_wire)
+            split = ", ".join(f"{k} {v['seconds']:.4f} s" for k, v in r["stages"].items())
+            log(f"[serving] bench {name} depth {depth}: {r['images_per_sec']:.2f} img/s "
+                f"({r['images']} images, B={SERVE_BATCH}, {card}; host preprocess "
+                f"{native.backend()}, {native.num_threads()} threads); {split}")
 
 
 def main() -> int:
@@ -1115,6 +1324,7 @@ def main() -> int:
     heads_phase(sd, card)
     throughput_phase(sd, card)
     versions_phase()
+    serving_phase(sd, card)
     log(card_line())
     kernels = []
     for name, stats in kstats.items():
@@ -1231,6 +1441,57 @@ def phases_main() -> int:
     return 0
 
 
+def _import_root(root: str) -> str:
+    """Make ``import perspectivefields_tpu_torch`` load the package under
+    ``root`` (this checkout's modules are dropped); returns root resolved."""
+    root = str(Path(root).resolve())
+    sys.path.insert(0, root)
+    for name in [m for m in sys.modules if m.startswith("perspectivefields_tpu_torch")]:
+        del sys.modules[name]
+    pkg = importlib.import_module("perspectivefields_tpu_torch")
+    if not pkg.__file__.startswith(root):
+        raise RuntimeError(f"imported {pkg.__file__}, not the package under {root}")
+    return root
+
+
+def split_main(root: str) -> int:
+    """inference_batch of the package under ``root`` on the flagship's
+    default bf16 path at B=32: img/s in two windows of 10 calls, the split
+    of 10 calls (``inference_split``), and the pinned host memory that
+    PyTorch's caching host allocator holds while the results of 8 calls are
+    kept (``torch.cuda.host_memory_stats``)."""
+    card = probe()
+    sd = seeded_state_dict(model_zoo[VERSION]["config"])
+    root = _import_root(root)
+    pf = importlib.import_module("perspectivefields_tpu_torch").PerspectiveFields
+    m = pf(VERSION, params=sd, compute_dtype="bfloat16", device="cuda")
+    batch = list(np.random.default_rng(SEED + 2).integers(0, 256, size=(32, 640, 640, 3), dtype=np.uint8))
+    reps = 10
+    for _ in range(2):
+        m.inference_batch(batch)
+    rates = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            m.inference_batch(batch)
+        rates.append(32 * reps / (time.perf_counter() - t0))
+    log(f"[split] {root} ({card}): inference_batch kernel path {', '.join(f'{r:.2f}' for r in rates)} "
+        f"img/s (B=32 640x640 bf16, {reps} calls a window); {split_line(inference_split(m, batch, reps))}")
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        log(f"[split] {root}: torch {torch.__version__} has no torch.cuda.host_memory_stats")
+        return 0
+    kept = []
+    for calls in range(1, 9):
+        kept.append(m.inference_batch(batch))
+        if calls in (1, 2, 4, 8):
+            st = stats()
+            log(f"[split] {root}: results of {calls} calls kept, pinned host memory held by "
+                f"the allocator {st.get('allocated_bytes.current', 0) / 2**20:.1f} MiB ({card})")
+    return 0
+
+
 def host_probe_main(root: str) -> int:
     """The host's cost of one call of the bf16 attention, MixFFN, stage-1
     attention and decoder-tail wrappers of the package under ``root``
@@ -1239,16 +1500,11 @@ def host_probe_main(root: str) -> int:
     waits on it), beside the device time per call back to back and from a
     CUDA graph."""
     probe()
-    root = str(Path(root).resolve())
-    sys.path.insert(0, root)
-    for name in [m for m in sys.modules if m.startswith("perspectivefields_tpu_torch")]:
-        del sys.modules[name]
+    root = _import_root(root)
     pfa = importlib.import_module("perspectivefields_tpu_torch.kernels.fused_attention")
     pmf = importlib.import_module("perspectivefields_tpu_torch.kernels.mixffn")
     ps1 = importlib.import_module("perspectivefields_tpu_torch.kernels.stage1_attention")
     pdt = importlib.import_module("perspectivefields_tpu_torch.kernels.decoder_tail")
-    if not pfa.__file__.startswith(root):
-        raise RuntimeError(f"imported {pfa.__file__}, not the package under {root}")
     cases = []
     for stage, (n, c, heads, _) in STAGES.items():
         a = _bf16(_attn_inputs(np.random.default_rng(stage), 8, n, 100, c))
@@ -1282,4 +1538,6 @@ if __name__ == "__main__":
         sys.exit(phases_main())
     if sys.argv[1:2] == ["--host-probe"]:
         sys.exit(host_probe_main(sys.argv[2] if len(sys.argv) > 2 else "."))
+    if sys.argv[1:2] == ["--split"]:
+        sys.exit(split_main(sys.argv[2] if len(sys.argv) > 2 else "."))
     sys.exit(main())

@@ -517,8 +517,9 @@ def test_native_preprocess_is_bit_exact_pil():
 
 
 def test_port_runs_without_jax():
-    """The card's machine has no JAX: import the port and chip_smoke's
-    imports, and run tiny CPU forwards with the fused flags, with jax,
+    """The card's machine has no JAX: import the port (serving, profiling
+    and bench_serving too) and chip_smoke's imports, and run tiny CPU
+    forwards with the fused flags and through BatchPredictor, with jax,
     flax and the JAX package made unimportable."""
     code = (
         "import sys\n"
@@ -526,6 +527,8 @@ def test_port_runs_without_jax():
         "import numpy as np, warnings\n"
         "import chip_smoke\n"
         "import perspectivefields_tpu_torch.kernels.decoder_tail\n"
+        "from perspectivefields_tpu_torch import bench_serving, serving\n"
+        "from perspectivefields_tpu_torch.utils import profiling\n"
         "from perspectivefields_tpu_torch.kernels import decoder_tail\n"
         "from perspectivefields_tpu_torch.config import *\n"
         "from perspectivefields_tpu_torch import PerspectiveFields\n"
@@ -538,6 +541,10 @@ def test_port_runs_without_jax():
         "m = PerspectiveFields('custom', config=cfg, device='cpu', fuse_ffn=True, fuse_convnext=True)\n"
         "p = m.inference(np.zeros((40, 50, 3), np.uint8))\n"
         "assert p['pred_gravity_original'].shape == (40, 50, 2)\n"
+        "bp = serving.BatchPredictor(m, batch_size=2, out_wire='u8')\n"
+        "outs = bp.predict([np.zeros((40, 50, 3), np.uint8)] * 3)\n"
+        "assert len(outs) == 3 and outs[0]['pred_gravity'].shape == (32, 32, 2)\n"
+        "assert 'device_wait' in bp.timer.summary()\n"
         "m = PerspectiveFields('custom', config=cfg, device='cpu', fuse_block=True)\n"
         "assert m.model.backbone.block4[0].route(1, 1, 1, 'cpu') == 'fused_block'\n"
         "p = m.inference(np.zeros((40, 50, 3), np.uint8))\n"

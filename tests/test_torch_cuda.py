@@ -9,15 +9,26 @@ import numpy as np
 import pytest
 import torch
 
+from perspectivefields_tpu_torch import PerspectiveFields, native
+from perspectivefields_tpu_torch.config import (
+    BackboneConfig,
+    GravityHeadConfig,
+    LatitudeHeadConfig,
+    ModelConfig,
+    ParamNetConfig,
+)
 from perspectivefields_tpu_torch.kernels import convnext_block as cb
 from perspectivefields_tpu_torch.kernels import fused_attention as fa
 from perspectivefields_tpu_torch.kernels import fused_block as fb
 from perspectivefields_tpu_torch.kernels import mixffn as mf
 from perspectivefields_tpu_torch.kernels import stage1_attention as s1
+from perspectivefields_tpu_torch.models import PersNet
 from perspectivefields_tpu_torch.models.common import init_random_
 from perspectivefields_tpu_torch.models.convnext import ConvNeXtBlock
 from perspectivefields_tpu_torch.models.heads import SegFormerDecoder
 from perspectivefields_tpu_torch.models.mit import Block, MixFFN, SRAttention
+from perspectivefields_tpu_torch.ops import image
+from perspectivefields_tpu_torch.serving import BatchPredictor
 
 # the package exports the function decoder_tail under its module's name
 dt = importlib.import_module("perspectivefields_tpu_torch.kernels.decoder_tail")
@@ -652,3 +663,128 @@ def test_fused_heads_match_plain_heads_on_the_card(cuda_device):
     assert fused.shape == plain.shape == tail.shape == (2, 160, 160, 73)
     torch.testing.assert_close(fused, plain, atol=5e-4, rtol=5e-4)
     torch.testing.assert_close(tail, plain, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------------------- serving path
+
+_SERVE_CFG = ModelConfig(
+    version="custom",
+    backbone=BackboneConfig(dims=(8, 16, 24, 32), depths=(1, 1, 1, 1), num_heads=(1, 2, 3, 4)),
+    gravity=GravityHeadConfig(loss_type="regression", embed_dim=16, fusion_dim=16),
+    latitude=LatitudeHeadConfig(loss_type="regression", embed_dim=16, fusion_dim=16),
+    param=ParamNetConfig(name="ParamNet"), recover_rpf=True, resize=(64, 64),
+)
+
+
+def _serve_model(**kw):
+    sd = init_random_(PersNet(_SERVE_CFG), seed=0).state_dict()
+    return PerspectiveFields("custom", config=_SERVE_CFG, params=sd, device="cuda", **kw)
+
+
+def _serve_images(seed, n, hw=(64, 64)):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, size=(*hw, 3), dtype=np.uint8) for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_wire", [None, "u8"])
+def test_batch_predictor_on_a_side_stream_matches_the_default_stream(cuda_device, out_wire):
+    model = _serve_model()
+    imgs = _serve_images(0, 7)
+    want = BatchPredictor(model, batch_size=3, out_wire=out_wire).predict(imgs)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        got = BatchPredictor(model, batch_size=3, depth=2, out_wire=out_wire).predict(imgs)
+    assert len(got) == len(want) == 7
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for key in w:
+            np.testing.assert_array_equal(g[key], w[key], err_msg=key)
+
+
+@pytest.mark.cuda
+def test_batch_predictor_outputs_were_on_the_card(cuda_device):
+    model = _serve_model()
+    bp = BatchPredictor(model, batch_size=2, wire="u8")
+    devices = []
+    fwd = bp._fwd
+
+    def spy(x):
+        out = fwd(x)
+        devices.extend([x.device.type] + [v.device.type for v in out.values()])
+        return out
+
+    bp._fwd = spy
+    outs = bp.predict(_serve_images(1, 3))
+    assert len(outs) == 3 and devices and set(devices) == {"cuda"}
+    assert bp._slots[0][0].is_pinned()
+    assert all(v.dtype == np.float32 for v in outs[0].values())
+
+
+@pytest.mark.cuda
+def test_inference_batch_results_are_not_aliased_across_calls(cuda_device):
+    model = _serve_model()
+    for dp in (False, True):
+        model.device_preprocess = dp
+        first = model.inference_batch(_serve_images(2, 4, hw=(96, 80)))
+        kept = [{k: np.array(v) for k, v in r.items()} for r in first]
+        model.inference_batch(_serve_images(3, 4, hw=(96, 80)))
+        for r, k in zip(first, kept):
+            for key, val in k.items():
+                np.testing.assert_array_equal(r[key], val, err_msg=key)
+
+
+def _pinned_bytes():
+    return torch.cuda.host_memory_stats()["allocated_bytes.current"]
+
+
+@pytest.mark.cuda
+def test_pinned_host_memory_is_held_only_by_what_callers_keep(cuda_device):
+    """inference_batch hands out views of its pinned blocks, which go back to
+    the caching host allocator when dropped; BatchPredictor copies its
+    results out, so the pinned pool stays flat however many are kept."""
+    model = _serve_model()
+    imgs = _serve_images(5, 4, hw=(96, 80))
+    model.inference_batch(imgs)
+    held = _pinned_bytes()
+    for _ in range(3):
+        model.inference_batch(imgs)  # dropped: its blocks are reused
+    assert _pinned_bytes() == held
+    kept = model.inference_batch(imgs)
+    fields = [v for r in kept for k, v in r.items() if k.startswith(("pred_gravity", "pred_latitude"))
+              and isinstance(v, np.ndarray)]
+    assert len(fields) == 16 and all(torch.from_numpy(v).is_pinned() for v in fields)
+    streamed = []
+    for out_wire in (None, "u8"):
+        bp = BatchPredictor(model, batch_size=2, depth=2, out_wire=out_wire)
+        streamed += bp.predict(_serve_images(6, 8))
+        held = _pinned_bytes()
+        streamed += bp.predict(_serve_images(7, 8))
+        assert _pinned_bytes() == held
+    arrays = [v for r in streamed for v in r.values() if isinstance(v, np.ndarray)]
+    assert len(arrays) == 64 and not any(torch.from_numpy(v).is_pinned() for v in arrays)
+
+
+@pytest.mark.cuda
+def test_device_resize_within_one_lsb_with_tf32_on(cuda_device):
+    """The device 'pil_bilinear' resize is elementwise f32: the global TF32
+    flags do not reach it."""
+    rng = np.random.default_rng(4)
+    imgs = rng.integers(0, 256, size=(2, 480, 640, 3), dtype=np.uint8)
+    model = _serve_model(device_preprocess=True)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        fn = image.make_resize((480, 640), (320, 320), "pil_bilinear", "cuda")
+        got = fn(torch.from_numpy(imgs).cuda()).cpu().numpy()
+        fused = image.make_fused_preprocess((480, 640), (320, 320), np.zeros(3), np.ones(3),
+                                            torch.float32)(torch.from_numpy(imgs).cuda())
+        model.inference_batch(list(imgs))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    for i in range(2):
+        exact = native.pil_resize_uint8(imgs[i], 320, 320).astype(np.float32)
+        assert np.abs(np.round(got[i]) - exact).max() <= 1.0
+        assert np.abs(np.round(fused[i].cpu().numpy()) - exact).max() <= 1.0
+    cpu = image.make_resize((480, 640), (320, 320), "pil_bilinear", "cpu")(torch.from_numpy(imgs))
+    np.testing.assert_allclose(got, cpu.numpy(), atol=1e-4)
+    assert list(model._resize_cache._d) == [(480, 640)]
