@@ -58,7 +58,28 @@ Phases (each fails loudly; nothing is caught and turned into success):
      within the bf16 tolerance, f16 out-wire within 2e-3 and u8 out-wire
      within 1/255 of the same wire's f32 readback), 25 launches a batch,
      the forward's outputs on the card; (c) bench_serving's five modes at
-     B=32, depth 1 and 2, after its host<->device link probe.
+     B=32, depth 1 and 2, after its host<->device link probe;
+  8. train and evaluate on the card: (a) a B=16 320^2 synthetic batch
+     rendered on the card against the same cameras rendered on the CPU
+     (images within 255e-3, latitude and parameters 1e-5, the up field on
+     99.9% of pixels 1e-5 and on all 1e-3: next to a VVP inside the crop
+     its direction is ill-conditioned), crop_distortion's up field on the
+     card against the CPU (99% of pixels within 1e-5) and against float64
+     (no further off than twice the CPU's float32, or 1e-4); (b) the
+     trainer's full-width model (MiT-b3 at 320^2, regression heads,
+     ParamNetConvNextRegress, bf16 autocast on f32 parameters) at B=16, 30
+     AdamW steps on one batch with remat on, then off: finite, falling
+     loss, a finite non-zero gradient for every parameter after the first
+     step, no kernel launch, img/s and peak memory; a step of a model built
+     with use_kernels=True raises (the kernels are inference-only); the
+     entry points tools.train (with a checkpoint resume) and tools.evaluate
+     at full width; (c) a train-state checkpoint saved twice, the newest
+     corrupted, restored from the older with a warning, and one more step
+     from it giving the loss of the run without the save; (d)
+     evaluate_pairs over 64 synthetic 320^2 crops on the flagship: bf16 on
+     the default kernel route (25 fused_attention launches a forward)
+     against bf16 without kernels, f32 with the kernels against f32
+     without (within 1e-4 degrees), and its img/s.
 
 The line before the last is a JSON object with the kernels' launch counts,
 errors, times and bounds; the last line is {"ok": true, "device": {...}}.
@@ -121,6 +142,13 @@ from perspectivefields_tpu_torch.models.convnext import ConvNeXtBlock
 from perspectivefields_tpu_torch.models.mit import MixFFN, SRAttention
 from perspectivefields_tpu_torch.bench_serving import card_line
 from perspectivefields_tpu_torch.serving import BatchPredictor
+from perspectivefields_tpu_torch import data as pdata
+from perspectivefields_tpu_torch.checkpoint import restore_train_state, save_train_state
+from perspectivefields_tpu_torch.evaluation import evaluate_pairs
+from perspectivefields_tpu_torch.ops.pano import crop_distortion
+from perspectivefields_tpu_torch.tools import evaluate as tool_evaluate
+from perspectivefields_tpu_torch.tools import train as tool_train
+from perspectivefields_tpu_torch.train import create_train_state, make_train_step
 
 # the package exports the function decoder_tail under its module's name
 dt = importlib.import_module("perspectivefields_tpu_torch.kernels.decoder_tail")
@@ -175,6 +203,14 @@ F32_TOL = 1e-4  # atol and rtol, f32 kernel vs f32 plain version
 BF16_REL_TOL = 1e-2  # max|d| / max|ref|, bf16 kernel vs f32 plain version
 FIELD_TOL, DEGREE_TOL = 5e-4, 1e-3  # tests/test_reference_parity.py:104-133
 TIMING_CALLS = 30
+# train / evaluate phase: the trainer's batch, steps on one batch, eval set
+TRAIN_BATCH, TRAIN_STEPS, EVAL_IMAGES = 16, 30, 64
+# bf16 evaluation with and without the attention kernel, degrees: the two
+# bf16 forwards differ by bf16 rounding (2^-8 of a value) in each of 25
+# blocks; the mean errors average it over 6.5M pixels, the medians move by
+# whole 0.1-degree bins, the camera errors are means of 64 images
+EVAL_BF16_TOL = 0.5
+EVAL_F32_TOL = 1e-4  # degrees: the f32 kernel sums in cuBLAS's order
 # serving phase: B=32 over 72 images (2 full batches and a padded tail of 8)
 SERVE_BATCH, SERVE_IMAGES = 32, 72
 U8_WIRE_TOL = 1 / 255 + 1e-6  # the u8 output wire's step, plus f32 rounding
@@ -1312,6 +1348,214 @@ def serving_phase(sd, card: str) -> None:
                 f"{native.backend()}, {native.num_threads()} threads); {split}")
 
 
+def _launch_counts() -> dict:
+    return {name: mod.LAUNCHES for name, mod in KERNELS.items()}
+
+
+def _data_on_card_check() -> None:
+    """(a) a synthetic batch rendered on the card against the same cameras
+    rendered on the CPU, and crop_distortion on the card against the CPU."""
+    gen = pdata.make_batch_generator(320, 320)
+    pano_cpu = pdata.synthetic_pano(pdata.seeded_generator(SEED, 0), device="cpu")
+    t0 = time.perf_counter()
+    got = gen(pdata.seeded_generator(SEED, 1, 0), pano_cpu.cuda(), TRAIN_BATCH)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    want = pdata.render_batch({k: v.cpu() for k, v in got["cams"].items()}, pano_cpu, 320, 320)
+    worst = {}
+    for key, tol in (("image", 255e-3), ("gt_gravity", 1e-3), ("gt_latitude", 1e-5),
+                     ("gt_params", 1e-5)):
+        worst[key] = (got[key].cpu() - want[key]).abs().max().item()
+        if worst[key] > tol:
+            raise AssertionError(f"[train] batch on the card vs CPU, {key}: {worst[key]} > {tol}")
+    # the up field's direction is ill-conditioned at pixels next to a VVP
+    # that falls inside the crop (an ulp of the VVP over the distance to it)
+    up_err = (got["gt_gravity"].cpu() - want["gt_gravity"]).abs().amax(dim=-1)
+    up_share = (up_err <= 1e-5).float().mean().item()
+    if up_share < 0.999:
+        raise AssertionError(f"[train] up field on the card vs CPU: {up_share} within 1e-5")
+    log(f"[train] B={TRAIN_BATCH} 320^2 batch rendered on the card in {ms:.1f} ms (first call); "
+        "vs the same cameras on the CPU, max|d|: " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f"; {up_share * 100:.3f}% of up-field pixels within 1e-5")
+    # the USM up field differentiates a float32 round trip (theta -> pixel
+    # -> theta); near the pole's image it is ill-conditioned, so each
+    # device is held against a float64 evaluation as well
+    up = {dev: crop_distortion(pano_cpu.to(dev), 150.0, 0.5, 320, 320, 30.0, 20.0, -10.0)["up"].cpu()
+          for dev in ("cuda", "cpu")}
+    ref = crop_distortion(pano_cpu.double(), 150.0, 0.5, 320, 320, 30.0, 20.0, -10.0)["up"]
+    err = (up["cuda"] - up["cpu"]).abs().amax(dim=-1)
+    share = (err <= 1e-5).float().mean().item()
+    off = {dev: (u.double() - ref).abs().max().item() for dev, u in up.items()}
+    log(f"[train] crop_distortion up field (320^2, f 150, xi 0.5) on the card vs CPU: max|d| "
+        f"{err.max().item():.2e}, {share * 100:.2f}% of pixels within 1e-5; vs float64: card "
+        f"{off['cuda']:.2e}, CPU {off['cpu']:.2e}")
+    if share < 0.99 or off["cuda"] > max(2 * off["cpu"], 1e-4):
+        raise AssertionError("[train] crop_distortion's up field on the card is off the CPU's")
+
+
+def _train_run(cfg, batch, remat: bool, card: str) -> tuple:
+    """TRAIN_STEPS AdamW steps of the full-width trainer on one batch; the
+    losses (finite, falling), the first step's gradients (finite and not
+    zero), no kernel launch, img/s and peak memory."""
+    model = tool_train.build_model(cfg, "cuda", remat=remat, seed=SEED)
+    state = create_train_state(model, learning_rate=1e-4)
+    step = make_train_step(cfg, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    state, m = step(state, batch)
+    bad = [n for n, p in model.named_parameters()
+           if not torch.isfinite(p.grad).all() or not p.grad.any()]
+    if bad:
+        raise AssertionError(f"[train] parameters with no finite non-zero gradient: {bad}")
+    losses = [m["loss"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS - 1):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    rate = TRAIN_BATCH * (TRAIN_STEPS - 1) / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if any(_launch_counts().values()):
+        raise AssertionError(f"[train] a kernel launched during training: {_launch_counts()}")
+    losses = torch.stack(losses).tolist()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[train] remat={remat}: losses {losses}")
+    log(f"[train] full width B={TRAIN_BATCH} 320^2 bf16 autocast, remat {'on' if remat else 'off'}: "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} in {TRAIN_STEPS} steps, {rate:.2f} img/s "
+        f"(steps 2-{TRAIN_STEPS}), peak memory {peak:.2f} GiB, every gradient finite and non-zero "
+        f"({len(list(model.parameters()))} parameters), no kernel launch ({card})")
+    return state, step
+
+
+def _checkpoint_check(cfg, state, step, batch, tmp: Path) -> None:
+    """(c) save twice (keep=2), corrupt the newest, restore the older with a
+    warning; one more step from it gives the loss of the run without the
+    save."""
+    import warnings
+
+    first = save_train_state(state, str(tmp))
+    n = state.step
+    state, m = step(state, batch)
+    want = m["loss"].item()
+    newest = save_train_state(state, str(tmp))
+    Path(newest, "state.pt").write_bytes(b"not a checkpoint")
+    template = create_train_state(tool_train.build_model(cfg, "cuda", remat=False, seed=SEED + 1))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        restored = restore_train_state(str(tmp), template)
+    if restored.step != n or not any("unusable" in str(w.message) for w in caught):
+        raise AssertionError(f"[train] restore gave step {restored.step} (want {n}) or no warning")
+    _, m = step(restored, batch)
+    got = m["loss"].item()
+    if abs(got - want) > 1e-6 * abs(want):
+        raise AssertionError(f"[train] loss after restore {got}, without the save {want}")
+    log(f"[train] checkpoint: saved {Path(first).name} and {Path(newest).name}, corrupted the "
+        f"newest, restored step {n} with a warning; the next step's loss {got:.6f} "
+        f"(without the save {want:.6f})")
+
+
+def _entry_points_check(tmp: Path, card: str) -> None:
+    """The trainer and evaluator as a user runs them (python -m ...), at
+    full width: 2 steps with a checkpoint, a resume to 4, then an evaluation
+    of the flagship version."""
+    ckpt, out = tmp / "cli", tmp / "cli.npz"
+    common = ["--batch", str(TRAIN_BATCH), "--chunk", "2", "--ckpt-dir", str(ckpt),
+              "--ckpt-every", "2"]
+    tool_train.main(["--steps", "2", *common])
+    state = tool_train.main(["--steps", "4", "--out", str(out), *common])
+    if state.step != 4 or not out.exists():
+        raise AssertionError("[train] tools.train did not resume to step 4 and save")
+    res = tool_evaluate.main(["--samples", "32", "--batch", str(TRAIN_BATCH)])
+    if res["samples"] != 32 or not all(np.isfinite(v) for v in res.values()):
+        raise AssertionError(f"[train] tools.evaluate: {res}")
+    log(f"[train] tools.train (2 steps, resumed to 4, saved {out.name}) and tools.evaluate "
+        f"(32 crops) at full width ran ({card})")
+
+
+def _eval_metrics(model, tag: str, card: str) -> dict:
+    it = pdata.data_iterator(SEED + 5, batch_size=TRAIN_BATCH, im_hw=(320, 320), device="cuda")
+    batches = [next(it) for _ in range(EVAL_IMAGES // TRAIN_BATCH)]
+    evaluate_pairs(model, batches[:1])  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = evaluate_pairs(model, batches, max_samples=EVAL_IMAGES)
+    rate = EVAL_IMAGES / (time.perf_counter() - t0)
+    res["launches"] = _launch_counts()
+    log(f"[eval] {tag}: {rate:.2f} img/s over {res['samples']} crops ({card}); "
+        + ", ".join(f"{k} {v:.4f}" for k, v in res.items() if isinstance(v, float))
+        + f"; launches {res['launches']}")
+    return res
+
+
+def _compare_metrics(tag: str, a: dict, b: dict, tol: float) -> None:
+    keys = [k for k, v in a.items() if isinstance(v, float)]
+    diff = {k: abs(a[k] - b[k]) for k in keys}
+    log(f"[eval] {tag}: max|d| {max(diff.values()):.2e} degrees (bound {tol}); "
+        + ", ".join(f"{k} {v:.2e}" for k, v in diff.items()))
+    if max(diff.values()) > tol:
+        raise AssertionError(f"[eval] {tag}: {diff}")
+
+
+def _evaluation_check(sd, card: str) -> None:
+    """(d) evaluate_pairs on the flagship: bf16 on the default kernel route
+    against bf16 without kernels, f32 with the kernels against f32 without."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    per_forward = PATHS["default"][1]["fused_attention"]
+    res = {}
+    for dtype in ("bfloat16", "float32"):
+        for kernels_on in (True, False):
+            m = PerspectiveFields(VERSION, params=sd, compute_dtype=dtype, device="cuda",
+                                  use_kernels=kernels_on)
+            tag = f"{dtype} {'kernel route' if kernels_on else 'no kernels'}"
+            res[dtype, kernels_on] = r = _eval_metrics(m, tag, card)
+            want = per_forward * EVAL_IMAGES // TRAIN_BATCH if kernels_on else 0
+            if r["launches"] != {**{k: 0 for k in KERNELS}, "fused_attention": want}:
+                raise AssertionError(f"[eval] {tag}: launches {r['launches']}, want {want}")
+    _compare_metrics("bf16 kernel route vs bf16 without kernels", res["bfloat16", True],
+                     res["bfloat16", False], EVAL_BF16_TOL)
+    _compare_metrics("f32 kernel route vs f32 without kernels", res["float32", True],
+                     res["float32", False], EVAL_F32_TOL)
+
+
+def train_eval_phase(sd, card: str) -> None:
+    """Phase 8: the training and evaluation path on the card."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    _data_on_card_check()
+    log(f"[train] (a) data checks at {time.perf_counter() - t0:.1f} s")
+    cfg = tool_train.model_config(False, 320)
+    mean = torch.tensor(cfg.pixel_mean, device="cuda")
+    batch = pdata.make_step_batch_fn(SEED + 3, TRAIN_BATCH, (320, 320), device="cuda")(0)
+    batch = {k: v for k, v in dict(batch, image=batch["image"] - mean).items() if k != "cams"}
+    _train_run(cfg, batch, remat=True, card=card)
+    state, step = _train_run(cfg, batch, remat=False, card=card)
+    kernel_model = init_random_(PersNet(cfg, use_kernels=True), seed=SEED).cuda()
+    try:
+        make_train_step(cfg, compute_dtype=torch.bfloat16)(create_train_state(kernel_model), batch)
+    except RuntimeError as exc:
+        if "inference-only" not in str(exc):
+            raise
+        log(f"[train] a step of a model built with use_kernels=True raises: {exc}")
+    else:
+        raise AssertionError("[train] a training step through the kernels did not raise")
+    del kernel_model
+    log(f"[train] (b) training runs at {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        _checkpoint_check(cfg, state, step, batch, Path(tmp) / "ckpt")
+        del state, step
+        torch.cuda.empty_cache()
+        log(f"[train] (c) checkpoint at {time.perf_counter() - t0:.1f} s")
+        _entry_points_check(Path(tmp), card)
+        log(f"[train] entry points at {time.perf_counter() - t0:.1f} s")
+    _evaluation_check(sd, card)
+    log(f"[train] phase 8 in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     card = probe()
     build_phase()
@@ -1325,6 +1569,7 @@ def main() -> int:
     throughput_phase(sd, card)
     versions_phase()
     serving_phase(sd, card)
+    train_eval_phase(sd, card)
     log(card_line())
     kernels = []
     for name, stats in kstats.items():

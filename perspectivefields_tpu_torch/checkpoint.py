@@ -9,13 +9,23 @@ its ``_map_*`` helpers; ``flax_to_torch_names`` and its helpers), since the
 port imports nothing of the JAX package; tests/test_torch_api.py holds them
 equal. ``_unflatten`` is the port's copy of
 perspectivefields_tpu/checkpoint/io.py's, so a JAX ``.npz`` (the flat file
-its ``save_params`` writes) loads with numpy alone (``load_npz``).
+its ``save_params`` writes) loads with numpy alone (``load_npz``), and
+``state_dict_to_jax`` (a copy of ``convert_torch_state_dict``'s strict form)
+writes one (``save_params``).
+
+Training state (JAX checkpoint/io.py's ``save_train_state`` /
+``restore_train_state``, orbax there) is saved with ``torch.save`` under
+``path/step_<n>/``: the model's and the optimizer's state dicts and the
+step, the newest ``keep`` kept.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import re
+import shutil
+import tempfile
 import warnings
 import zipfile
 
@@ -112,6 +122,26 @@ def _map_head(parts, head_name):
     if sub.startswith("linear_pred"):
         return base + ("linear_pred",), "conv"
     raise KeyError(f"unmapped head param: {parts}")
+
+
+_LN_MAP = {"weight": "scale", "bias": "bias"}
+_BN_MAP = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}
+
+
+def _convert_tensor(kind: str, leaf: str, value: np.ndarray):
+    """One torch tensor -> (flax leaf, value); kind: conv | linear | ln | bn
+    (JAX torch_convert.py:_convert_tensor)."""
+    if kind == "conv" and leaf == "weight":
+        return "kernel", np.transpose(value, (2, 3, 1, 0))
+    if kind == "linear" and leaf == "weight":
+        return "kernel", np.transpose(value, (1, 0))
+    if kind in ("conv", "linear") and leaf == "bias":
+        return "bias", value
+    if kind == "ln":
+        return _LN_MAP[leaf], value
+    if kind == "bn":
+        return _BN_MAP[leaf], value
+    return leaf, value
 
 
 def map_torch_name(name: str):
@@ -239,6 +269,29 @@ def state_dict_from_jax(params) -> dict[str, torch.Tensor]:
     }
 
 
+def state_dict_to_jax(state_dict) -> dict:
+    """A port (reference-named) state dict -> the JAX param tree
+    ({"params": ...}, float32 numpy) that JAX's PersNet applies: the strict
+    form of JAX's ``convert_torch_state_dict`` (an unmapped key raises)."""
+    tree: dict = {}
+    for name, value in state_dict.items():
+        mapped = map_torch_name(name)
+        if mapped is None:
+            continue
+        path, kind, leaf = mapped
+        value = np.asarray(value.detach().float().cpu() if isinstance(value, torch.Tensor) else value)
+        if kind == "raw":
+            full, out = path, value
+        else:
+            new_leaf, out = _convert_tensor(kind, leaf, value)
+            full = path + (new_leaf,)
+        node = tree
+        for k in full[:-1]:
+            node = node.setdefault(k, {})
+        node[full[-1]] = np.asarray(out, np.float32)
+    return {"params": tree}
+
+
 def _unflatten(flat: dict) -> dict:
     """A flat {"a/b/c": array} dict -> the nested tree (JAX:
     checkpoint/io.py:_unflatten)."""
@@ -300,3 +353,102 @@ def load_into(model: nn.Module, state_dict: dict[str, torch.Tensor]) -> None:
             f"{result.unexpected_keys[:5]}",
             stacklevel=2,
         )
+
+
+# ---------------------------------------------------------------------------
+# parameter and train-state persistence (JAX checkpoint/io.py)
+# ---------------------------------------------------------------------------
+
+
+def save_params(params, path: str) -> None:
+    """Save a model's weights as a flat ``.npz`` in JAX's layout (its
+    ``save_params``: the param tree's paths joined with "/"), so JAX's
+    ``load_params`` reads it. ``params``: an ``nn.Module`` or its state dict.
+    Only ``.npz`` is written (JAX's orbax directory form is not ported)."""
+    if not str(path).endswith(".npz"):
+        raise ValueError(f"save_params writes a flat .npz; got {path!r}")
+    if isinstance(params, nn.Module):
+        params = params.state_dict()
+    flat = {"/".join(p): v for p, v in _flatten(state_dict_to_jax(params))}
+    np.savez_compressed(path, **flat)
+
+
+def load_params(path: str) -> dict[str, torch.Tensor]:
+    """Read a flat ``.npz`` written by this ``save_params`` or by JAX's into a
+    float32 state dict for ``load_state_dict(strict=True)``."""
+    return load_npz(path)
+
+
+_STATE_FILE = "state.pt"
+
+
+def _step_dirs(base: str) -> list[str]:
+    return sorted(d for d in os.listdir(base) if d.startswith("step_")) if os.path.isdir(base) else []
+
+
+def save_train_state(state, path: str, keep: int = 2) -> str:
+    """Persist a ``train.TrainState`` (model and optimizer state dicts, step)
+    as ``path/step_<n>/state.pt`` and keep the newest ``keep`` step
+    directories. The directory is written under a temporary name and
+    renamed, so a crash mid-save leaves the older checkpoints whole.
+    Returns the step directory."""
+    base = os.path.abspath(path)
+    os.makedirs(base, exist_ok=True)
+    final = os.path.join(base, f"step_{int(state.step):08d}")
+    tmp = tempfile.mkdtemp(prefix=".saving_", dir=base)
+    torch.save(
+        {
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step),
+        },
+        os.path.join(tmp, _STATE_FILE),
+    )
+    if os.path.isdir(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    if keep:
+        for stale in _step_dirs(base)[:-keep]:
+            shutil.rmtree(os.path.join(base, stale), ignore_errors=True)
+    return final
+
+
+def _load_state(cand: str, template) -> None:
+    """Load one step directory into ``template`` (a TrainState), all or
+    nothing: on any failure the template is put back as it was."""
+    blob = torch.load(os.path.join(cand, _STATE_FILE), map_location="cpu", weights_only=True)
+    want = template.model.state_dict()
+    got = blob["model"]
+    if set(got) != set(want) or any(got[k].shape != want[k].shape for k in want):
+        raise ValueError(f"model state in {cand} does not match the template's")
+    saved_model = {k: v.clone() for k, v in want.items()}
+    saved_opt = copy.deepcopy(template.optimizer.state_dict())
+    try:
+        template.model.load_state_dict(got, strict=True)
+        template.optimizer.load_state_dict(blob["optimizer"])
+        template.step = int(blob["step"])
+    except Exception:
+        template.model.load_state_dict(saved_model)
+        template.optimizer.load_state_dict(saved_opt)
+        raise
+
+
+def restore_train_state(path: str, template):
+    """Restore the newest usable checkpoint under ``path`` into ``template``
+    (a freshly made ``TrainState`` of the same model and optimizer) and
+    return it. Step directories are tried newest first; an unusable one
+    (partial, corrupt, or of another model) is skipped with a warning.
+    Raises FileNotFoundError, chained to the last failure, when none
+    restores."""
+    base = os.path.abspath(path)
+    last_exc = None
+    for d in reversed(_step_dirs(base)):
+        cand = os.path.join(base, d)
+        try:
+            _load_state(cand, template)
+        except Exception as exc:  # noqa: BLE001 - any unusable save is skipped
+            last_exc = exc
+            warnings.warn(f"checkpoint {cand} unusable ({exc!r}); trying older", stacklevel=2)
+            continue
+        return template
+    raise FileNotFoundError(f"no restorable checkpoint under {base}") from last_exc

@@ -101,6 +101,26 @@ def library(name: str, signatures: dict[str, list], defines: tuple = ()) -> ctyp
         return lib
 
 
+def check_inference_only(kernel: str, *tensors) -> None:
+    """Raise if autograd would have to differentiate through ``kernel``:
+    grad mode is on and one of ``tensors`` requires grad. The CUDA kernels
+    write into fresh tensors through ctypes and have no backward, so their
+    result would be silently detached; they are inference-only, as the JAX
+    package's Pallas kernels are (none has a VJP). Each wrapper calls this
+    for every non-CPU tensor; CPU tensors run the differentiable plain
+    version and never reach it."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernels are inference-only (no backward, as "
+            "in the JAX package); build the model with use_kernels=False and "
+            "the fuse_* flags off to train, or call it under torch.no_grad()"
+        )
+
+
 def raise_on_error(lib: ctypes.CDLL, err: int, kernel: str) -> None:
     """Raise if a launch function returned a CUDA error (its
     cudaGetLastError() right after the launches)."""

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from ..ops.activations import gelu_f32
 from . import hopper_plan as hp
-from .build import library, raise_on_error
+from .build import check_inference_only, library, raise_on_error
 from .hopper_plan import CLUSTERS, MAX_STAGES, SMEM_LIMIT, STAGE_BYTES  # noqa: F401 (re-exported)
 
 # Launches of the CUDA kernel since the last reset (a plain counter: a run
@@ -249,6 +249,7 @@ def convnext_block(x, dwk, dwb, lns, lnb, w1, b1, w2, b2, gamma, eps: float = 1e
     args = (x, dwk, dwb, lns, lnb, w1, b1, w2, b2, gamma)
     if x.device.type == "cpu":
         return convnext_block_reference(*args, eps=eps)
+    check_inference_only("convnext_block", *args)
     if x.device.type != "cuda":
         raise ValueError(f"convnext_block: no kernel for device {x.device}")
     check_kernel_args(*args)

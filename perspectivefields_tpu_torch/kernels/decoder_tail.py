@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from ..ops.image import resize_bilinear
 from . import hopper_plan as hp
-from .build import library, raise_on_error
+from .build import check_inference_only, library, raise_on_error
 from .hopper_plan import CLUSTERS, SMEM_LIMIT
 
 # Launches of the CUDA kernel since the last reset (a plain counter: a run
@@ -279,6 +279,7 @@ def decoder_tail(a, ll, w0, b0, w1, b1, wp, bp):
     global LAUNCHES
     if a.device.type == "cpu":
         return decoder_tail_reference(a, ll, w0, b0, w1, b1, wp, bp)
+    check_inference_only("decoder_tail", a, ll, w0, b0, w1, b1, wp, bp)
     if a.device.type != "cuda":
         raise ValueError(f"decoder_tail: no kernel for device {a.device}")
     check_kernel_args(a, ll, w0, b0, w1, b1, wp, bp)

@@ -27,7 +27,7 @@ import functools
 import torch
 
 from . import hopper_plan as hp
-from .build import library, raise_on_error
+from .build import check_inference_only, library, raise_on_error
 from .hopper_plan import CLUSTERS, MAX_STAGES, SMEM_LIMIT, STAGE_BYTES  # noqa: F401 (re-exported)
 
 # Launches of the CUDA kernel since the last reset (a plain counter: a run
@@ -285,6 +285,7 @@ def fused_attention(
         return fused_attention_reference(
             x, kv_in, wq, bq, wkv, bkv, wproj, bproj, num_heads, scale, residual
         )
+    check_inference_only("fused_attention", x, kv_in, wq, bq, wkv, bkv, wproj, bproj, residual)
     if x.device.type != "cuda":
         raise ValueError(f"fused_attention: no kernel for device {x.device}")
     check_kernel_args(x, kv_in, wq, bq, wkv, bkv, wproj, bproj, num_heads, residual)

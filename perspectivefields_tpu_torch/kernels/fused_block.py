@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from . import fused_attention as fa
 from . import hopper_plan as hp
 from . import mixffn as mf
-from .build import library, raise_on_error
+from .build import check_inference_only, library, raise_on_error
 from .hopper_plan import CLUSTERS, MAX_STAGES, SMEM_LIMIT, STAGE_BYTES  # noqa: F401 (re-exported)
 
 # Launches of the CUDA kernel since the last reset (a plain counter: a run
@@ -294,6 +294,7 @@ def fused_block(
     args = (ln1x, kv_in, res, wq, bq, wkv, bkv, wproj, bproj, ln2s, ln2b, w1, b1, dwk, dwb, w2, b2)
     if ln1x.device.type == "cpu":
         return fused_block_reference(*args, num_heads, scale, h, w, eps)
+    check_inference_only("fused_block", *args)
     if ln1x.device.type != "cuda":
         raise ValueError(f"fused_block: no kernel for device {ln1x.device}")
     check_kernel_args(*args, num_heads, h, w)

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from ..ops.activations import gelu_f32
 from . import hopper_plan as hp
-from .build import library, raise_on_error
+from .build import check_inference_only, library, raise_on_error
 from .hopper_plan import CLUSTERS, MAX_STAGES, SMEM_LIMIT, STAGE_BYTES  # noqa: F401 (re-exported)
 from .hopper_plan import sm_count
 
@@ -332,6 +332,7 @@ def mixffn(x, w1, b1, dwk, dwb, w2, b2):
     global LAUNCHES
     if x.device.type == "cpu":
         return mixffn_reference(x, w1, b1, dwk, dwb, w2, b2)
+    check_inference_only("mixffn", x, w1, b1, dwk, dwb, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"mixffn: no kernel for device {x.device}")
     check_kernel_args(x, w1, b1, dwk, dwb, w2, b2)

@@ -24,7 +24,7 @@ import functools
 
 import torch
 
-from .build import library, raise_on_error
+from .build import check_inference_only, library, raise_on_error
 from .hopper_plan import sm_count
 from .fused_attention import ATTN_TOKEN_GATE, MAX_KEYS, check_kernel_args as _check_attention_args
 from .fused_attention import fused_attention_reference
@@ -186,6 +186,7 @@ def stage1_attention(x, kv_in, wq, bq, wkv, bkv, wproj, bproj, scale: float, res
         return stage1_attention_reference(
             x, kv_in, wq, bq, wkv, bkv, wproj, bproj, scale, residual
         )
+    check_inference_only("stage1_attention", x, kv_in, wq, bq, wkv, bkv, wproj, bproj, residual)
     if x.device.type != "cuda":
         raise ValueError(f"stage1_attention: no kernel for device {x.device}")
     check_kernel_args(x, kv_in, wq, bq, wkv, bkv, wproj, bproj, residual)

@@ -38,15 +38,18 @@ def _up2x(x: torch.Tensor) -> torch.Tensor:
 
 class FrozenBatchNorm(nn.Module):
     """Inference BatchNorm: y = (x - mean) / sqrt(var + eps) * weight + bias
-    with stored statistics (reference perspectivefields.py:70-83)."""
+    with stored statistics (reference perspectivefields.py:70-83). The four
+    tensors are parameters, as in JAX's FrozenBatchNorm, whose trainer's
+    AdamW updates them like every other parameter; the state-dict names
+    are the reference's."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.register_buffer("weight", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.running_mean = nn.Parameter(torch.zeros(features))
+        self.running_var = nn.Parameter(torch.ones(features))
 
     def forward(self, x):
         inv = self.weight / torch.sqrt(self.running_var + self.eps)
@@ -133,8 +136,13 @@ _W_PHASE1 = ((0.25, 0.75, 0.0), (0.0, 0.75, 0.25), (0.0, 0.25, 0.75))
 @functools.lru_cache(maxsize=None)
 def _phase_matrices(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """_W_PHASE0/1 as f32 tensors on ``device``, made once: a copy from host
-    lists inside the forward would wait for the device each call."""
-    return tuple(torch.tensor(m, dtype=torch.float32, device=device) for m in (_W_PHASE0, _W_PHASE1))
+    lists inside the forward would wait for the device each call. Made
+    outside inference mode even when first asked for inside it, so a later
+    training forward can save them for its backward."""
+    with torch.inference_mode(False):
+        return tuple(
+            torch.tensor(m, dtype=torch.float32, device=device) for m in (_W_PHASE0, _W_PHASE1)
+        )
 
 
 def phase_kernels(k: torch.Tensor) -> torch.Tensor:

@@ -14,13 +14,18 @@ block that JAX's ``fuse_block`` would fuse as one whole-block kernel
 (``kernels.fused_block``; at 320^2 the 21 blocks of stages 3-4), and with
 ``use_kernels`` also sends stage 1's one-head attention to
 ``kernels.stage1_attention``: each block's route is ``Block.route``.
-Stochastic depth is the identity at inference and is not ported.
+
+Training mode (``train()``) adds JAX's stochastic depth (``DropPath``, the
+per-block rates of ``drop_path_rate``) and, with ``remat``, recomputes each
+block in the backward pass (``torch.utils.checkpoint``). The kernels are
+inference-only: a block routed to one raises under autograd.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import BackboneConfig
 
@@ -119,6 +124,36 @@ class SRAttention(nn.Module):
         return out if residual is None else residual + out
 
 
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (JAX models/mit.py:DropPath): in training
+    a sample's branch is kept with probability 1 - rate and scaled by
+    1 / (1 - rate), else zeroed. The identity in eval() and at rate 0. No
+    parameters, so no state-dict entry.
+
+    The mask is drawn by ``sample`` (from the caller's ``torch.Generator``,
+    or the global one) before the block runs, so a block recomputed in the
+    backward pass (``remat``) applies the same mask."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def sample(self, x: torch.Tensor, generator: torch.Generator | None = None):
+        """A (B, 1, ..., 1) keep mask for ``x``'s samples, or None where the
+        branch passes unchanged (eval, rate 0)."""
+        if not self.training or self.rate == 0.0:
+            return None
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        dev = x.device if generator is None else generator.device
+        u = torch.rand(shape, generator=generator, device=dev).to(x.device)
+        return u < 1.0 - self.rate
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        if mask is None:
+            return x
+        return torch.where(mask, x / (1.0 - self.rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class DWConv(nn.Module):
     """3x3 depthwise conv (reference DWConv; torch name ``dwconv.dwconv``)."""
 
@@ -152,17 +187,18 @@ class MixFFN(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block: x + attn(LN(x)); x + ffn(LN(x)).
+    """Pre-LN transformer block: x + drop(attn(LN(x))); x + drop(ffn(LN(x))).
     ``fuse_block`` runs the block after LN1 as one whole-block kernel where
     ``route`` says so (same state dict)."""
 
     def __init__(
         self, dim: int, num_heads: int, sr_ratio: int, mlp_ratio: int = 4,
         qkv_bias: bool = True, ln_eps: float = 1e-6, use_kernels: bool = False,
-        fuse_ffn: bool = False, fuse_block: bool = False,
+        fuse_ffn: bool = False, fuse_block: bool = False, drop_path: float = 0.0,
     ):
         super().__init__()
         self.fuse_block = fuse_block
+        self.drop_path1, self.drop_path2 = DropPath(drop_path), DropPath(drop_path)
         self.norm1 = nn.LayerNorm(dim, eps=ln_eps)
         self.attn = SRAttention(
             dim, num_heads, sr_ratio, qkv_bias, ln_eps, use_kernels, fuse_block
@@ -194,7 +230,12 @@ class Block(nn.Module):
             return "fused_block"
         return attn.route(h * w, n_keys, device)
 
-    def forward(self, x):
+    def drop_masks(self, x: torch.Tensor, generator: torch.Generator | None = None) -> tuple:
+        """The two branches' stochastic-depth masks for ``x`` (None, None in
+        eval or at rate 0)."""
+        return self.drop_path1.sample(x, generator), self.drop_path2.sample(x, generator)
+
+    def forward(self, x, masks: tuple = (None, None)):
         b, h, w, c = x.shape
         if self.route(b, h, w, x.device) == "fused_block":
             ln1 = self.norm1(x)
@@ -207,8 +248,8 @@ class Block(nn.Module):
                 attn.num_heads, (c // attn.num_heads) ** -0.5, h, w, self.norm2.eps,
             )
             return out.reshape(b, h, w, c)
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+        x = x + self.drop_path1(self.attn(self.norm1(x)), masks[0])
+        return x + self.drop_path2(self.mlp(self.norm2(x)), masks[1])
 
 
 class OverlapPatchEmbed(nn.Module):
@@ -227,14 +268,21 @@ class MixViT(nn.Module):
     """Four-stage MiT encoder: (B, H, W, 3) -> stride 4/8/16/32 NHWC maps.
 
     Attribute names follow the reference state dict (``patch_embed1``,
-    ``block1.0.attn.kv``, ``norm1``)."""
+    ``block1.0.attn.kv``, ``norm1``). Stochastic-depth rates rise linearly
+    over all blocks from 0 to ``spec.drop_path_rate`` (reference
+    mix_transformers.py:306-308). ``remat`` recomputes each block in the
+    backward pass instead of keeping its activations (JAX's ``nn.remat``):
+    the same state dict and numbers, less memory."""
 
     def __init__(
         self, spec: BackboneConfig = BackboneConfig(), use_kernels: bool = False,
-        fuse_ffn: bool = False, fuse_block: bool = False,
+        fuse_ffn: bool = False, fuse_block: bool = False, remat: bool = False,
     ):
         super().__init__()
-        in_ch = 3
+        self.remat = remat
+        total = sum(spec.depths)
+        dpr = [spec.drop_path_rate * i / max(total - 1, 1) for i in range(total)]
+        in_ch, cur = 3, 0
         for s in range(4):
             setattr(self, f"patch_embed{s + 1}", OverlapPatchEmbed(
                 in_ch, spec.dims[s], 7 if s == 0 else 3, 4 if s == 0 else 2, spec.ln_eps,
@@ -243,19 +291,26 @@ class MixViT(nn.Module):
                 Block(
                     spec.dims[s], spec.num_heads[s], spec.sr_ratios[s],
                     spec.mlp_ratio, spec.qkv_bias, spec.ln_eps, use_kernels, fuse_ffn,
-                    fuse_block,
+                    fuse_block, dpr[cur + i],
                 )
-                for _ in range(spec.depths[s])
+                for i in range(spec.depths[s])
             ))
             setattr(self, f"norm{s + 1}", nn.LayerNorm(spec.dims[s], eps=spec.ln_eps))
             in_ch = spec.dims[s]
+            cur += spec.depths[s]
 
-    def forward(self, x):
+    def forward(self, x, generator: torch.Generator | None = None):
+        """``generator`` draws the stochastic-depth masks in training (None:
+        the global generator)."""
         outs = []
         for s in range(1, 5):
             x = getattr(self, f"patch_embed{s}")(x)
             for blk in getattr(self, f"block{s}"):
-                x = blk(x)
+                masks = blk.drop_masks(x, generator)
+                if self.remat and torch.is_grad_enabled():
+                    x = checkpoint(blk, x, masks, use_reentrant=False)
+                else:
+                    x = blk(x, masks)
             x = getattr(self, f"norm{s}")(x)
             outs.append(x)
         return tuple(outs)

@@ -482,7 +482,7 @@ def test_npz_loads_without_jax(tmp_path, jax_model):
     jax_io.save_params(jax_model.params, str(path))
     code = (
         "import sys\n"
-        "for name in ('jax', 'flax', 'perspectivefields_tpu'): sys.modules[name] = None\n"
+        "for name in ('jax', 'flax', 'optax', 'orbax', 'perspectivefields_tpu'): sys.modules[name] = None\n"
         "from perspectivefields_tpu_torch import checkpoint\n"
         f"sd = checkpoint.load_npz({str(path)!r})\n"
         "assert len(sd) > 100 and all(v.dtype.is_floating_point for v in sd.values())\n"
@@ -517,14 +517,17 @@ def test_native_preprocess_is_bit_exact_pil():
 
 
 def test_port_runs_without_jax():
-    """The card's machine has no JAX: import the port (serving, profiling
-    and bench_serving too) and chip_smoke's imports, and run tiny CPU
-    forwards with the fused flags and through BatchPredictor, with jax,
-    flax and the JAX package made unimportable."""
+    """The card's machine has no JAX: import the port (serving, profiling,
+    bench_serving, the pano ops, pano_camera, config_yaml, data, train,
+    evaluation and the tools too) and chip_smoke's imports, run tiny CPU
+    forwards with the fused flags and through BatchPredictor, and two
+    ``tools.train --tiny`` steps, with jax, flax, optax, orbax and the JAX
+    package made unimportable."""
     code = (
         "import sys\n"
-        "for name in ('jax', 'flax', 'perspectivefields_tpu'): sys.modules[name] = None\n"
-        "import numpy as np, warnings\n"
+        "for name in ('jax', 'flax', 'optax', 'orbax', 'perspectivefields_tpu'): sys.modules[name] = None\n"
+        "import numpy as np, torch, warnings\n"
+        "torch.set_num_threads(1)  # one of six test processes on the cores\n"
         "import chip_smoke\n"
         "import perspectivefields_tpu_torch.kernels.decoder_tail\n"
         "from perspectivefields_tpu_torch import bench_serving, serving\n"
@@ -532,6 +535,9 @@ def test_port_runs_without_jax():
         "from perspectivefields_tpu_torch.kernels import decoder_tail\n"
         "from perspectivefields_tpu_torch.config import *\n"
         "from perspectivefields_tpu_torch import PerspectiveFields\n"
+        "from perspectivefields_tpu_torch.ops import pano\n"
+        "from perspectivefields_tpu_torch import pano_camera, config_yaml, data, train, evaluation\n"
+        "from perspectivefields_tpu_torch.tools import train as ttrain, evaluate as tevaluate\n"
         "cfg = ModelConfig(version='custom', backbone=BackboneConfig(dims=(64, 128, 192, 256), "
         "depths=(1, 1, 1, 1), num_heads=(1, 2, 3, 4)), "
         "gravity=GravityHeadConfig(loss_type='regression', embed_dim=16, fusion_dim=16), "
@@ -560,8 +566,11 @@ def test_port_runs_without_jax():
         "p = PerspectiveFields('custom', config=reg, device='cpu', fuse_convnext=True).inference("
         "np.zeros((40, 50, 3), np.uint8))\n"
         "assert np.isfinite(p['pred_rel_focal'])\n"
+        "state = ttrain.main(['--tiny', '--steps', '2', '--batch', '2', '--size', '64', "
+        "'--device', 'cpu'])\n"
+        "assert state.step == 2\n"
         "loaded = [k for k in sys.modules if sys.modules[k] is not None]\n"
-        "assert not any(k == 'jax' or k.startswith(('jax.', 'flax')) for k in loaded)\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'flax', 'optax', 'orbax')) for k in loaded)\n"
         "assert not any(k.split('.')[0] == 'perspectivefields_tpu' for k in loaded)\n"
         "print('ok')\n"
     )

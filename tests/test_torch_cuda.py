@@ -788,3 +788,95 @@ def test_device_resize_within_one_lsb_with_tf32_on(cuda_device):
     cpu = image.make_resize((480, 640), (320, 320), "pil_bilinear", "cpu")(torch.from_numpy(imgs))
     np.testing.assert_allclose(got, cpu.numpy(), atol=1e-4)
     assert list(model._resize_cache._d) == [(480, 640)]
+
+
+# ---------------------------------------------------------------------------
+# the training and evaluation path on the card
+# ---------------------------------------------------------------------------
+
+GUARDED = {
+    "fused_attention": lambda m, x: m.fused_attention(x, x, x, x, x, x, x, x, 1, 0.125),
+    "stage1_attention": lambda m, x: m.stage1_attention(x, x, x, x, x, x, x, x, 0.125),
+    "mixffn": lambda m, x: m.mixffn(x, x, x, x, x, x, x),
+    "convnext_block": lambda m, x: m.convnext_block(x, x, x, x, x, x, x, x, x, x),
+    "decoder_tail": lambda m, x: m.decoder_tail(x, x, x, x, x, x, x, x),
+    "fused_block": lambda m, x: m.fused_block(x, x, x, x, x, x, x, x, x, x, x, x, x, x, x, x, x,
+                                              1, 0.125, 1, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GUARDED))
+def test_kernel_refuses_inputs_that_require_grad(cuda_device, name):
+    """Under grad mode a CUDA input that requires grad raises before any
+    launch: the kernels have no backward (F1)."""
+    mod = importlib.import_module(f"perspectivefields_tpu_torch.kernels.{name}")
+    x = torch.zeros(1, 4, 4, 64, device="cuda", requires_grad=True)
+    before = mod.LAUNCHES
+    with pytest.raises(RuntimeError, match="inference-only"):
+        GUARDED[name](mod, x)
+    assert mod.LAUNCHES == before
+
+
+TINY = ModelConfig(
+    version="custom",
+    backbone=BackboneConfig(dims=(8, 16, 24, 32), depths=(1, 1, 1, 1), num_heads=(1, 2, 3, 4),
+                            drop_path_rate=0.0),
+    gravity=GravityHeadConfig(loss_type="regression", embed_dim=16, fusion_dim=16),
+    latitude=LatitudeHeadConfig(loss_type="regression", embed_dim=16, fusion_dim=16),
+    param=ParamNetConfig(name="ParamNetConvNextRegress", predict_params=("roll", "pitch", "vfov"),
+                         input_size=32),
+    recover_rpf=True,
+    resize=(64, 64),
+)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """The --tiny trainer's f32 step on the card and on the CPU from the same
+    weights and batch: the loss within 1e-5 relative, the clipped gradients
+    within 1e-5 (their norm is 1), the parameters within 0.1 lr."""
+    from perspectivefields_tpu_torch.data import make_step_batch_fn
+    from perspectivefields_tpu_torch.train import create_train_state, make_train_step
+
+    sd = init_random_(PersNet(TINY), seed=0).state_dict()
+    for key in ("weight", "bias"):
+        sd[f"persformer_heads.latitude_head.linear_pred_latitude.{key}"] *= 0.01
+    batch = make_step_batch_fn(0, batch_size=2, im_hw=(64, 64), device="cpu")(0)
+    batch = {k: v for k, v in batch.items() if k != "cams"}
+    batch["image"] = batch["image"] - torch.tensor(TINY.pixel_mean)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        net = PersNet(TINY).to(dev)
+        net.load_state_dict(sd)
+        state = create_train_state(net, learning_rate=1e-4)
+        state, m = make_train_step(TINY)(state, {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = (float(m["loss"]), {n: p.grad.cpu() for n, p in net.named_parameters()},
+                    {n: p.detach().cpu() for n, p in net.named_parameters()})
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for n, g in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][n], g, rtol=0, atol=1e-5, msg=n)
+        torch.testing.assert_close(out["cuda"][2][n], out["cpu"][2][n], rtol=0, atol=1e-5, msg=n)
+
+
+@pytest.mark.cuda
+def test_evaluate_pairs_on_the_card_matches_the_cpu(cuda_device):
+    """evaluate_pairs of the --tiny model (f32, no kernels at these widths)
+    on the card and on the CPU over the same batches: within 1e-3 degrees."""
+    import warnings
+
+    from perspectivefields_tpu_torch.data import make_step_batch_fn
+    from perspectivefields_tpu_torch.evaluation import evaluate_pairs
+
+    sd = init_random_(PersNet(TINY), seed=0).state_dict()
+    fn = make_step_batch_fn(1, batch_size=3, im_hw=(64, 64), device="cpu")
+    batches = [fn(i) for i in range(3)]
+    res = {}
+    for dev in ("cpu", "cuda"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            model = PerspectiveFields("custom", config=TINY, params=sd, device=dev)
+        res[dev] = evaluate_pairs(model, batches)
+    assert res["cuda"]["samples"] == res["cpu"]["samples"] == 9
+    for k, v in res["cpu"].items():
+        assert res["cuda"][k] == pytest.approx(v, abs=1e-3), k
