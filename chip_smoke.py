@@ -79,7 +79,32 @@ Phases (each fails loudly; nothing is caught and turned into success):
      evaluate_pairs over 64 synthetic 320^2 crops on the flagship: bf16 on
      the default kernel route (25 fused_attention launches a forward)
      against bf16 without kernels, f32 with the kernels against f32
-     without (within 1e-4 degrees), and its img/s.
+     without (within 1e-4 degrees), and its img/s;
+  9. parallel, the learning proof, the converters and the demo: (a)
+     tools.learning_proof at its defaults with PROOF_STEPS steps (--smoke):
+     the held-out mean up error must fall at least 2x from its random-init
+     value; img/s; (b) the flagship's seeded state dict saved as a released
+     {"model": sd} .pth, tools.convert_checkpoint to the flat .npz (its
+     sanity forward on the card), PerspectiveFields(params=npz) bf16
+     outputs bit-equal to the model loaded from the state dict, then
+     tools.export_torch's .pth loaded strictly and equal to the state dict;
+     (c) init_distributed on NCCL at world size 1 (an all-reduce); two gloo
+     ranks sharing cuda:0, each on its 8 rows, against one process on the
+     B=16 batch (tools.dryrun_multiprocess --config trainer: the trainer's
+     full-width model, f32, TF32 off, one step): losses within 1e-5
+     (relative), the clipped gradients within 1e-5, parameters within 0.1
+     * lr wherever |g| > 1e-5 (DP_GRAD_TOL says why); inference_batch split over
+     two replicas on cuda:0 (forward_split, 16 images; the first replica
+     the model itself, only the second a copy) bit-equal to the
+     single path on each replica's 8 rows, 25 fused_attention launches a
+     forward on each replica, and its distance from the single path on all
+     16 rows at once (the plain ops' results depend on the batch size, and
+     normalising a random up field's near-cancelling vectors amplifies
+     that, so it is printed, not bounded); (d) the demo's inference
+     (tools.demo) on its synthetic image with the flagship's seeded
+     weights: 25 launches, finite camera parameters, and both PNGs where
+     cv2 and matplotlib import (else a log line says drawing is held on
+     the CPU only).
 
 The line before the last is a JSON object with the kernels' launch counts,
 errors, times and bounds; the last line is {"ok": true, "device": {...}}.
@@ -108,6 +133,15 @@ And one of inference_batch, for the package under ROOT in the same way:
         copies (synchronized at the network's call), and the pinned host
         memory held while the results of 8 calls are kept (``[split]``
         lines).
+
+And one of phase 8's training run, for how far the card's runs of it
+differ:
+
+    python3 chip_smoke.py --train-repeats N
+        phase 8's seeded 30-step run (remat on) N times on its one batch:
+        each run's losses, its loss terms at steps 1-2, and how many of
+        the first step's gradients differ in sign from the first run's
+        (``[repeat]`` lines).
 """
 
 from __future__ import annotations
@@ -146,8 +180,11 @@ from perspectivefields_tpu_torch import data as pdata
 from perspectivefields_tpu_torch.checkpoint import restore_train_state, save_train_state
 from perspectivefields_tpu_torch.evaluation import evaluate_pairs
 from perspectivefields_tpu_torch.ops.pano import crop_distortion
+from perspectivefields_tpu_torch.tools import convert_checkpoint, demo, export_torch, learning_proof
+from perspectivefields_tpu_torch.tools import dryrun_multiprocess as dryrun
 from perspectivefields_tpu_torch.tools import evaluate as tool_evaluate
 from perspectivefields_tpu_torch.tools import train as tool_train
+from perspectivefields_tpu_torch import parallel
 from perspectivefields_tpu_torch.train import create_train_state, make_train_step
 
 # the package exports the function decoder_tail under its module's name
@@ -215,6 +252,21 @@ EVAL_F32_TOL = 1e-4  # degrees: the f32 kernel sums in cuBLAS's order
 SERVE_BATCH, SERVE_IMAGES = 32, 72
 U8_WIRE_TOL = 1 / 255 + 1e-6  # the u8 output wire's step, plus f32 rounding
 F16_WIRE_TOL = 2e-3  # the f16 output wire, relative to max(1, |x|)
+# phase 9: learning-proof steps (about a minute), the held-out up error's
+# least fall over them; the split's images (two replicas, a padded tail)
+PROOF_STEPS, PROOF_MIN_FALL = 500, 2.0
+SPLIT_IMAGES = 16
+# tests/test_torch_train.py's tolerances: losses 1e-5 relative, the
+# first step's clipped gradients 1e-5, parameters 0.1 * lr. On the card the
+# parameters are held where |g| > 1e-5 only: the ranks' B=8 convolutions
+# round differently from the one process's B=16 ones (gradients within
+# ~3e-7), and Adam's first update, lr * g / (|g| + 1e-8), turns that into
+# up to 2 * lr where the gradient itself is at that noise level (5,588 of
+# 104.6M elements on an NVIDIA H100 80GB HBM3 at 700 W, where one process
+# against itself stays within 6e-7 everywhere). The CPU test holds every
+# element.
+DP_LOSS_RTOL, DP_GRAD_TOL = 1e-5, 1e-5
+DP_PARAM_TOL = 0.1 * dryrun.LR
 
 
 def log(msg: str) -> None:
@@ -1429,6 +1481,40 @@ def _train_run(cfg, batch, remat: bool, card: str) -> tuple:
     return state, step
 
 
+def train_repeats_main(n: int) -> int:
+    """Phase 8's training run (remat on), ``n`` times from the same seed on
+    the same batch."""
+    probe()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg = tool_train.model_config(False, 320)
+    mean = torch.tensor(cfg.pixel_mean, device="cuda")
+    batch = pdata.make_step_batch_fn(SEED + 3, TRAIN_BATCH, (320, 320), device="cuda")(0)
+    batch = {k: v for k, v in dict(batch, image=batch["image"] - mean).items() if k != "cams"}
+    first_grad = None
+    for run in range(n):
+        model = tool_train.build_model(cfg, "cuda", remat=True, seed=SEED)
+        state = create_train_state(model, learning_rate=1e-4)
+        step = make_train_step(cfg, compute_dtype=torch.bfloat16)
+        losses, parts = [], []
+        for i in range(TRAIN_STEPS):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            if i < 2:
+                parts.append(", ".join(f"{k} {float(v):.4f}" for k, v in m.items() if k != "loss"))
+            if i == 0:
+                grad = torch.cat([p.grad.flatten() for p in model.parameters()])
+                first_grad = grad if first_grad is None else first_grad
+                flips = int(((grad > 0) != (first_grad > 0)).sum())
+        log(f"[repeat] run {run}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+            f"({'falls' if losses[-1] < losses[0] else 'does not fall'}); step 1 gradients of "
+            f"{grad.numel()} differing in sign from run 0's: {flips}; losses "
+            + " ".join(f"{x:.3f}" for x in losses))
+        log(f"[repeat] run {run}: step 1 terms {parts[0]}; step 2 terms {parts[1]}")
+        del model, state, step, grad
+        torch.cuda.empty_cache()
+    return 0
+
+
 def _checkpoint_check(cfg, state, step, batch, tmp: Path) -> None:
     """(c) save twice (keep=2), corrupt the newest, restore the older with a
     warning; one more step from it gives the loss of the run without the
@@ -1556,6 +1642,159 @@ def train_eval_phase(sd, card: str) -> None:
     log(f"[train] phase 8 in {time.perf_counter() - t0:.1f} s")
 
 
+def _learning_check(card: str) -> None:
+    """(a) the learning proof at its defaults, PROOF_STEPS steps."""
+    res = learning_proof.main(["--steps", str(PROOF_STEPS), "--smoke"])
+    before, after = res["before"]["up_mean_deg"], res["after"]["up_mean_deg"]
+    log(f"[proof] {res['steps']} steps B={res['batch']} {res['size']}^2: held-out up error "
+        f"{before:.2f} -> {after:.2f} deg ({before / after:.2f}x), latitude "
+        f"{res['before']['lat_mean_deg']:.2f} -> {res['after']['lat_mean_deg']:.2f} deg, loss "
+        f"{res['loss_first']:.4f} -> {res['loss_last']:.4f}, {res['images_per_sec']:.1f} img/s "
+        f"({res['train_seconds']} s; {card})")
+    if not after * PROOF_MIN_FALL <= before:
+        raise AssertionError(f"[proof] up error fell {before / after:.2f}x, want >= {PROOF_MIN_FALL}")
+
+
+def _converter_check(sd, tmp: Path) -> None:
+    """(b) a released-format .pth -> .npz (and its sanity forward) -> the
+    same bf16 outputs as the state dict; the .npz -> .pth export loads
+    strictly and equals the state dict."""
+    pth = tmp / Path(model_zoo[VERSION]["weights_url"]).name
+    torch.save({"model": sd}, pth)
+    npz = convert_checkpoint.convert_one(VERSION, str(pth), str(tmp), "cuda")
+    imgs = list(np.random.default_rng(SEED + 11).integers(0, 256, size=(4, 640, 640, 3), dtype=np.uint8))
+    got = PerspectiveFields(VERSION, params=npz, compute_dtype="bfloat16", device="cuda").inference_batch(imgs)
+    want = PerspectiveFields(VERSION, params=sd, compute_dtype="bfloat16", device="cuda").inference_batch(imgs)
+    for g, w in zip(got, want, strict=True):
+        bad = [k for k in w if k != "pred_latitude_original_mode" and not np.array_equal(g[k], w[k])]
+        if bad or set(g) != set(w):
+            raise AssertionError(f"[convert] outputs from the .npz differ: {bad}")
+    exported = export_torch.export(npz, str(tmp / "export.pth"))
+    net = PersNet(model_zoo[VERSION]["config"])
+    net.load_state_dict(torch.load(tmp / "export.pth", weights_only=True)["model"], strict=True)
+    off = max((exported[k] - sd[k].float()).abs().max().item() for k in sd)
+    if off != 0.0:
+        raise AssertionError(f"[convert] exported tensors differ from the state dict by {off}")
+    log(f"[convert] {pth.name} -> {Path(npz).name} -> export.pth ({len(exported)} tensors, strict "
+        f"load, equal); bf16 outputs of the .npz model bit-equal to the state dict's on 4 images")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _parallel_check(sd, tmp: Path, card: str) -> None:
+    """(c) NCCL at world size 1; two gloo ranks on cuda:0 against one
+    process; inference_batch's split over two replicas on cuda:0."""
+    import torch.distributed as dist
+
+    parallel.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl")
+    t = torch.arange(4.0, device="cuda")
+    dist.all_reduce(t)
+    if dist.get_backend() != "nccl" or t.tolist() != [0.0, 1.0, 2.0, 3.0]:
+        raise AssertionError(f"[parallel] NCCL world 1: {dist.get_backend()}, {t.tolist()}")
+    dist.destroy_process_group()
+    log("[parallel] init_distributed: NCCL at world size 1, all-reduce ok")
+
+    t0 = time.perf_counter()
+    solo = dryrun.run("solo", "", 0, 1, 1, 1, "cuda", str(tmp), "trainer")
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = dryrun.launch(2, 1, 1, out_dir=str(tmp), timeout=300, device="cuda", config="trainer")
+    t2 = time.perf_counter()
+    ref = solo["train_losses"][0]
+    loss_d = max(abs(r["train_losses"][0] - ref) for r in ranks)
+    a, b = (torch.load(tmp / f"{role}.pt", weights_only=True) for role in ("solo", "mp"))
+    # after one step Adam's first moment is (1 - beta1) * the clipped gradient
+    grads = {k: (a["exp_avg"][k] / 0.1, b["exp_avg"][k] / 0.1) for k in a["exp_avg"]}
+    grad_d = max((ga - gb).abs().max().item() for ga, gb in grads.values())
+    param_all = max((a["params"][k] - b["params"][k]).abs().max().item() for k in a["params"])
+    beyond = sum(int(((a["params"][k] - b["params"][k]).abs() > DP_PARAM_TOL).sum()) for k in grads)
+    param_d = max(((a["params"][k] - b["params"][k]).abs() * (ga.abs() > DP_GRAD_TOL)).max().item()
+                  for k, (ga, _) in grads.items())
+    log(f"[parallel] one train step of the trainer's full-width model (f32, TF32 off, remat): "
+        f"2 gloo ranks on cuda:0 with 8 rows each vs one process at B=16: loss {ref:.6f}, "
+        f"max|d| loss {loss_d:.2e} (bound {DP_LOSS_RTOL:.0e} relative), clipped gradients "
+        f"{grad_d:.2e} (bound {DP_GRAD_TOL:.0e}), parameters where |g| > {DP_GRAD_TOL:.0e} "
+        f"{param_d:.2e} (bound {DP_PARAM_TOL:.0e}), all parameters {param_all:.2e} ({beyond} of "
+        f"{sum(v.numel() for v in a['params'].values())} elements beyond {DP_PARAM_TOL:.0e}); one "
+        f"process {t1 - t0:.1f} s, two ranks {t2 - t1:.1f} s ({card})")
+    if loss_d > DP_LOSS_RTOL * max(1.0, abs(ref)) or grad_d > DP_GRAD_TOL or param_d > DP_PARAM_TOL:
+        raise AssertionError("[parallel] the data-parallel step is not the one-process step")
+
+    rng = np.random.default_rng(SEED + 12)
+    imgs = list(rng.integers(0, 256, size=(SPLIT_IMAGES, 640, 640, 3), dtype=np.uint8))
+    model = PerspectiveFields(VERSION, params=sd, compute_dtype="bfloat16", device="cuda")
+    raw = [k for k in model.inference(imgs[0]) if not k.endswith(("_original", "_mode"))]
+    half = SPLIT_IMAGES // 2
+    rows = model.inference_batch(imgs[:half]) + model.inference_batch(imgs[half:])
+    whole = model.inference_batch(imgs)
+    model.replica_devices = [torch.device("cuda", 0)] * 2
+    model.inference_batch(imgs[:2])  # warm-up: the second replica is made
+    if set(model._replicas) != {1}:  # the first is the model itself, on its own cuda:0
+        raise AssertionError(f"[parallel] replicas copied for slots {sorted(model._replicas)}, want [1]")
+    torch.cuda.synchronize()
+    _reset_counts()
+    got = model.inference_batch(imgs)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    if launches != _expected("default", 2):
+        raise AssertionError(f"[parallel] split over 2 replicas: launches {launches}, want 25 each")
+    got_raw = [{k: g[k] for k in raw} for g in got]
+    _compare_serving("split over 2 replicas", got_raw, [{k: w[k] for k in raw} for w in rows],
+                     lambda k, w: 0.0)
+    far = {k: max(float(np.abs(g[k] - w[k]).max()) for g, w in zip(got_raw, whole)) for k in raw}
+    log(f"[parallel] inference_batch of {SPLIT_IMAGES} images split over 2 replicas on cuda:0: "
+        f"bit-equal to the single path on each replica's {half} rows; launches {launches}; vs the "
+        f"single path on all {SPLIT_IMAGES} rows at once, max|d| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in far.items()))
+
+
+def _demo_check(sd, tmp: Path, card: str) -> None:
+    """(d) the demo's inference on its synthetic image; the drawings where
+    cv2 and matplotlib import."""
+    img = demo.load_image_bgr(None)
+    model = PerspectiveFields(VERSION, params=sd, compute_dtype="bfloat16", device="cuda")
+    _reset_counts()
+    pred = model.inference(img)
+    torch.cuda.synchronize()
+    if _launch_counts() != _expected("default"):
+        raise AssertionError(f"[demo] launches {_launch_counts()}")
+    params = demo.camera_params(pred)
+    if not all(np.isfinite(list(params.values()))):
+        raise AssertionError(f"[demo] camera parameters {params}")
+    log("[demo] " + ", ".join(f"{k}: {v:.2f}" for k, v in params.items())
+        + f" (seeded random weights, {img.shape[0]}x{img.shape[1]} synthetic image, {card})")
+    try:
+        import cv2  # noqa: F401
+        import matplotlib  # noqa: F401
+    except ImportError as exc:
+        log(f"[demo] drawing is held on the CPU only: {exc}")
+        return
+    paths = demo.draw(img, pred, str(tmp / "demo"))
+    log(f"[demo] wrote {', '.join(Path(p).name for p in paths)}")
+
+
+def parallel_demo_phase(sd, card: str) -> None:
+    """Phase 9: the learning proof, the converters, parallel, the demo."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    _learning_check(card)
+    log(f"[phase9] (a) learning proof at {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        _converter_check(sd, Path(tmp))
+        log(f"[phase9] (b) converters at {time.perf_counter() - t0:.1f} s")
+        _parallel_check(sd, Path(tmp), card)
+        log(f"[phase9] (c) parallel at {time.perf_counter() - t0:.1f} s")
+        _demo_check(sd, Path(tmp), card)
+    log(f"[phase9] (d) demo; phase 9 in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     card = probe()
     build_phase()
@@ -1570,6 +1809,7 @@ def main() -> int:
     versions_phase()
     serving_phase(sd, card)
     train_eval_phase(sd, card)
+    parallel_demo_phase(sd, card)
     log(card_line())
     kernels = []
     for name, stats in kstats.items():
@@ -1783,6 +2023,8 @@ if __name__ == "__main__":
         sys.exit(phases_main())
     if sys.argv[1:2] == ["--host-probe"]:
         sys.exit(host_probe_main(sys.argv[2] if len(sys.argv) > 2 else "."))
+    if sys.argv[1:2] == ["--train-repeats"]:
+        sys.exit(train_repeats_main(int(sys.argv[2])))
     if sys.argv[1:2] == ["--split"]:
         sys.exit(split_main(sys.argv[2] if len(sys.argv) > 2 else "."))
     sys.exit(main())

@@ -9,6 +9,10 @@ The same user surface and output contract as perspectivefields_tpu/api.py
   device: PersNet forward -> per-size postprocess back to the input size
   host: one asynchronous copy per output into pinned memory, one wait
 
+With more than one local CUDA device the batch is split over a replica of
+the model on each (``forward_split``), as the JAX package shards it over
+its local devices; with one the path is unchanged.
+
 Outputs are numpy, channels-last unless ``channels_first=True``. On a CUDA
 device they are views of page-locked blocks of PyTorch's caching host
 allocator, each call's own: what a caller keeps stays page-locked until it
@@ -18,6 +22,7 @@ is dropped (``inference_batch`` says how much).
 from __future__ import annotations
 
 import collections
+import copy
 import os
 import pickle
 import warnings
@@ -58,14 +63,30 @@ _PARSE_ERRORS = (
 
 
 def _resolve_device(device) -> torch.device:
-    if device is None:
+    """``device`` (None: "cuda"); a CUDA device without an index resolves to
+    the current one, and CUDA raises where there is none."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "PerspectiveFields: no CUDA device found; pass device='cpu' "
                 "to run on the CPU"
             )
-        device = "cuda"
-    return torch.device(device)
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def local_replica_devices(requested, device: torch.device) -> list[torch.device] | None:
+    """The local CUDA devices a model on ``device`` splits its batches over
+    (JAX's ``_data_mesh`` over ``jax.local_devices()``): every one, the
+    model's own first, when the caller asked for CUDA without naming a
+    device (``requested`` None or "cuda") and there are several; else None.
+    A caller that names a device, as "cuda:1", keeps every batch on it."""
+    n = torch.cuda.device_count() if device.type == "cuda" else 0
+    if n <= 1 or torch.device(requested if requested is not None else "cuda").index is not None:
+        return None
+    return [device] + [torch.device("cuda", i) for i in range(n) if i != device.index]
 
 
 class _LRUCache:
@@ -142,6 +163,7 @@ class PerspectiveFields:
         compute_dtype: "float32" or "bfloat16"; bfloat16 stores the weights
             in bfloat16, as the JAX package's serving form does.
         device: torch device; None means "cuda" and raises without one.
+            "cuda" resolves to the current CUDA device, as "cuda:0".
         use_kernels: route eligible attention blocks to the CUDA kernel.
             None means "on a CUDA device, in bfloat16".
         fuse_ffn / fuse_convnext / fuse_block: run every MixFFN / every
@@ -157,6 +179,12 @@ class PerspectiveFields:
             resized with the float "pil_bilinear" taps, within 1 LSB of the
             host's bit-exact PIL resize) instead of on the host. Mixed sizes
             and float images take the host path.
+
+    ``replica_devices`` (an attribute, set after construction) lists the
+    devices the forward splits each batch over (``forward_split``): by
+    default, when ``device`` names no index, every local CUDA device where
+    there are several, the model's own first; else None (one device, no
+    split).
     """
 
     def __init__(
@@ -201,6 +229,8 @@ class PerspectiveFields:
         self._pixel_std = np.asarray(config.pixel_std, np.float32)
         self._mean = torch.tensor(self._pixel_mean, device=self.device)
         self._std = torch.tensor(self._pixel_std, device=self.device)
+        self.replica_devices = local_replica_devices(device, self.device)
+        self._replicas: dict[int, tuple] = {}
 
     # ------------------------------------------------------------------ setup
 
@@ -254,18 +284,68 @@ class PerspectiveFields:
 
     # ---------------------------------------------------------------- forward
 
+    def _network(self, model: PersNet, images: torch.Tensor, device: torch.device,
+                 prenormalized: bool) -> dict[str, torch.Tensor]:
+        """``model`` on ``images`` moved to ``device`` (asynchronously from
+        pinned memory), normalized there unless ``prenormalized``."""
+        x = images.to(device, non_blocking=True)
+        if not prenormalized:
+            mean, std = (self._mean, self._std) if device == self.device else (
+                self._mean.to(device), self._std.to(device))
+            x = (x.to(torch.float32) - mean) / std
+        return model(x.to(self.dtype))
+
     @torch.inference_mode()
     def _forward_fn(self, images: torch.Tensor) -> dict[str, torch.Tensor]:
         """Raw predictions of unnormalized uint8 or float BGR images at the
         network size, (B, H, W, 3) on any device: moved to the model's
-        device (asynchronously from pinned memory) and normalized there."""
-        x = images.to(self.device, non_blocking=True).to(torch.float32)
-        return self.model(((x - self._mean) / self._std).to(self.dtype))
+        device (asynchronously from pinned memory) and normalized there;
+        split over ``replica_devices`` where set."""
+        if self.replica_devices:
+            return self.forward_split(images, self.replica_devices)
+        return self._network(self.model, images, self.device, False)
 
     @torch.inference_mode()
     def _forward_prenormalized_fn(self, images: torch.Tensor) -> dict[str, torch.Tensor]:
         """Raw predictions of already-normalized float images."""
-        return self.model(images.to(self.device, non_blocking=True).to(self.dtype))
+        if self.replica_devices:
+            return self.forward_split(images, self.replica_devices, prenormalized=True)
+        return self._network(self.model, images, self.device, True)
+
+    def _replica(self, i: int, device: torch.device) -> PersNet:
+        """The model on the i-th device of a split: the model itself for a
+        first device that is its own, else a copy, made again when the
+        model's parameters have changed since (an in-place write bumps a
+        tensor's version; a new model or parameter changes its identity)."""
+        if i == 0 and device == self.device:
+            return self.model
+        key = (device, id(self.model)) + tuple((id(p), p._version) for p in self.model.parameters())
+        cached = self._replicas.get(i)
+        if cached is None or cached[0] != key:
+            cached = (key, copy.deepcopy(self.model).to(device))
+            self._replicas[i] = cached
+        return cached[1]
+
+    @torch.inference_mode()
+    def forward_split(self, images: torch.Tensor, devices, prenormalized: bool = False
+                      ) -> dict[str, torch.Tensor]:
+        """Raw predictions of a (B, H, W, 3) batch split over a replica of
+        the model on each of ``devices`` (a device may repeat: each entry
+        holds its own replica), gathered on the model's device. The tail is
+        zero-padded to a multiple of the device count and sliced back off,
+        as JAX's ``_forward_batched`` does. Every replica's forward is
+        issued before any result is read."""
+        devices = [_resolve_device(d) for d in devices]
+        b = images.shape[0]
+        pad = (-b) % len(devices)
+        if pad:
+            images = torch.cat([images, images.new_zeros((pad, *images.shape[1:]))])
+        outs = [
+            self._network(self._replica(i, dev), rows, dev, prenormalized)
+            for i, (dev, rows) in enumerate(zip(devices, images.chunk(len(devices))))
+        ]
+        return {k: torch.cat([o[k].to(self.device, non_blocking=True) for o in outs])[:b]
+                for k in outs[0]}
 
     def forward(self, images_nhwc) -> dict[str, torch.Tensor]:
         """Raw forward on an already-resized (B, H, W, 3) BGR batch

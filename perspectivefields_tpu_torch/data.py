@@ -11,6 +11,9 @@ from a generator seeded with both, so the stream is seekable (a resumed run
 continues it) and the same on every device. JAX's threefry draws cannot be
 reproduced in torch, so the cameras differ from JAX's for the same seed;
 ``render_batch`` takes any cameras, JAX's included.
+
+Data parallelism: with ``rows`` (``parallel.batch_rows``) a rank draws the
+whole batch's cameras, then renders only its own rows of it.
 """
 
 from __future__ import annotations
@@ -100,15 +103,17 @@ def make_batch_generator(
     gravity_classes: Optional[int] = None,
     latitude_classes: Optional[int] = None,
 ):
-    """A function (generator, pano, n) -> training batch: ``n`` cameras from
-    ``sampler`` (drawn on the generator's device), rendered by
-    ``render_batch`` on the pano's device. Regression targets by default;
+    """A function (generator, pano, n, rows=None) -> training batch: ``n``
+    cameras from ``sampler`` (drawn on the generator's device), rendered by
+    ``render_batch`` on the pano's device; with ``rows`` (a slice) only those
+    rows of the ``n`` are rendered. Regression targets by default;
     gravity_classes / latitude_classes give bin targets (e.g. 73 / 180)."""
 
-    def gen(generator: torch.Generator, pano: torch.Tensor, n: int):
-        return render_batch(
-            sampler.sample(generator, n), pano, im_h, im_w, gravity_classes, latitude_classes
-        )
+    def gen(generator: torch.Generator, pano: torch.Tensor, n: int, rows: Optional[slice] = None):
+        cams = sampler.sample(generator, n)
+        if rows is not None:
+            cams = {k: v[rows] for k, v in cams.items()}
+        return render_batch(cams, pano, im_h, im_w, gravity_classes, latitude_classes)
 
     return gen
 
@@ -150,16 +155,18 @@ def make_step_batch_fn(
     im_hw=(320, 320),
     pano: Optional[torch.Tensor] = None,
     device="cuda",
+    rows: Optional[slice] = None,
     **gen_kwargs,
 ):
     """(step: int) -> batch, on ``device``, for ``train.make_train_loop``.
     The same seekable stream as ``data_iterator``: batch i is a pure
-    function of (seed, i)."""
+    function of (seed, i). ``rows``: this data-parallel rank's rows of each
+    global batch of ``batch_size`` (``parallel.batch_rows``)."""
     gen = make_batch_generator(im_hw[0], im_hw[1], **gen_kwargs)
     pano = _stream(seed, pano, device)
 
     def batch_fn(step: int):
-        return gen(seeded_generator(seed, 1, int(step)), pano, batch_size)
+        return gen(seeded_generator(seed, 1, int(step)), pano, batch_size, rows)
 
     return batch_fn
 
@@ -171,13 +178,14 @@ def data_iterator(
     pano: Optional[torch.Tensor] = None,
     start_step: int = 0,
     device="cuda",
+    rows: Optional[slice] = None,
     **gen_kwargs,
 ) -> Iterator[Dict[str, torch.Tensor]]:
     """Infinite stream of synthetic training batches on ``device``. Batch i is
     a pure function of (seed, i), so a resumed run (``start_step`` = the
     restored step) continues the stream instead of re-reading it from
-    batch 0."""
-    batch_fn = make_step_batch_fn(seed, batch_size, im_hw, pano, device, **gen_kwargs)
+    batch 0. ``rows`` as ``make_step_batch_fn``."""
+    batch_fn = make_step_batch_fn(seed, batch_size, im_hw, pano, device, rows, **gen_kwargs)
     step = start_step
     while True:
         yield batch_fn(step)

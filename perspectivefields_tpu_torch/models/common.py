@@ -7,6 +7,7 @@ import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
 
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -15,6 +16,16 @@ def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     The permutes are views: the conv sees a channels_last-format tensor and
     returns one, so no layout copy is made around it."""
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def replicated(t: torch.Tensor) -> torch.Tensor:
+    """``t``; a DTensor (the tensor-parallel forward, ``parallel.sharding``)
+    redistributed to Replicate. DTensor's convolution does not reduce a
+    kernel whose sums are split over ranks, so a kernel composed from a
+    sharded weight is gathered before it reaches a conv."""
+    if isinstance(t, DTensor):
+        return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+    return t
 
 
 @torch.no_grad()

@@ -28,12 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.image import resize_bilinear
-from .common import conv_nhwc
-
-
-def _up2x(x: torch.Tensor) -> torch.Tensor:
-    return resize_bilinear(x, 2 * x.shape[-3], 2 * x.shape[-2])
+from ..ops.image import up2x_bilinear as _up2x
+from .common import conv_nhwc, replicated
 
 
 class FrozenBatchNorm(nn.Module):
@@ -221,11 +217,11 @@ class SegFormerDecoder(nn.Module):
             return conv_nhwc(proc, emb(c))
         cdt = proc.weight.dtype
         # compose in f32, cast once
-        k = torch.einsum("ec,feij->fcij", emb.weight.float(), proc.weight.float()).to(cdt)
+        k = replicated(torch.einsum("ec,feij->fcij", emb.weight.float(), proc.weight.float()).to(cdt))
         y = F.conv2d(c.to(cdt).permute(0, 3, 1, 2), k, padding=1)
         # the embed bias reaches every tap that lands inside the zero-padded
         # embedded map: a 3x3 conv of a ones map
-        kb = torch.einsum("e,feij->fij", emb.bias.float(), proc.weight.float()).to(cdt)
+        kb = replicated(torch.einsum("e,feij->fij", emb.bias.float(), proc.weight.float()).to(cdt))
         ones = torch.ones((1, 1, c.shape[1], c.shape[2]), dtype=cdt, device=c.device)
         bias_map = F.conv2d(ones, kb[:, None], padding=1)
         return (y + bias_map + proc.bias.to(cdt)[:, None, None]).permute(0, 2, 3, 1)

@@ -138,15 +138,20 @@ class DropPath(nn.Module):
         super().__init__()
         self.rate = rate
 
-    def sample(self, x: torch.Tensor, generator: torch.Generator | None = None):
+    def sample(self, x: torch.Tensor, generator: torch.Generator | None = None,
+               rows: tuple[int, int] | None = None):
         """A (B, 1, ..., 1) keep mask for ``x``'s samples, or None where the
-        branch passes unchanged (eval, rate 0)."""
+        branch passes unchanged (eval, rate 0). rows = (first, total): ``x``
+        holds rows first.. of a global batch of ``total`` split over
+        data-parallel ranks; the global batch's mask is drawn and this
+        rank's rows taken, so every rank draws what one process would."""
         if not self.training or self.rate == 0.0:
             return None
-        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        first, total = (0, x.shape[0]) if rows is None else rows
+        shape = (total,) + (1,) * (x.ndim - 1)
         dev = x.device if generator is None else generator.device
-        u = torch.rand(shape, generator=generator, device=dev).to(x.device)
-        return u < 1.0 - self.rate
+        u = torch.rand(shape, generator=generator, device=dev)[first:first + x.shape[0]]
+        return u.to(x.device) < 1.0 - self.rate
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         if mask is None:
@@ -230,10 +235,11 @@ class Block(nn.Module):
             return "fused_block"
         return attn.route(h * w, n_keys, device)
 
-    def drop_masks(self, x: torch.Tensor, generator: torch.Generator | None = None) -> tuple:
+    def drop_masks(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                   rows: tuple[int, int] | None = None) -> tuple:
         """The two branches' stochastic-depth masks for ``x`` (None, None in
-        eval or at rate 0)."""
-        return self.drop_path1.sample(x, generator), self.drop_path2.sample(x, generator)
+        eval or at rate 0); ``rows`` as ``DropPath.sample``."""
+        return self.drop_path1.sample(x, generator, rows), self.drop_path2.sample(x, generator, rows)
 
     def forward(self, x, masks: tuple = (None, None)):
         b, h, w, c = x.shape
@@ -299,14 +305,16 @@ class MixViT(nn.Module):
             in_ch = spec.dims[s]
             cur += spec.depths[s]
 
-    def forward(self, x, generator: torch.Generator | None = None):
+    def forward(self, x, generator: torch.Generator | None = None,
+                rows: tuple[int, int] | None = None):
         """``generator`` draws the stochastic-depth masks in training (None:
-        the global generator)."""
+        the global generator); ``rows`` places ``x`` in a data-parallel
+        global batch (``DropPath.sample``)."""
         outs = []
         for s in range(1, 5):
             x = getattr(self, f"patch_embed{s}")(x)
             for blk in getattr(self, f"block{s}"):
-                masks = blk.drop_masks(x, generator)
+                masks = blk.drop_masks(x, generator, rows)
                 if self.remat and torch.is_grad_enabled():
                     x = checkpoint(blk, x, masks, use_reentrant=False)
                 else:

@@ -51,16 +51,19 @@ class PersNet(nn.Module):
         )
 
     def forward(
-        self, images: torch.Tensor, generator: torch.Generator | None = None
+        self, images: torch.Tensor, generator: torch.Generator | None = None,
+        rows: tuple[int, int] | None = None,
     ) -> dict[str, torch.Tensor]:
         """images: normalized (B, H, W, 3) in the model's dtype. Returns
         channels-last pred_gravity (B, H, W, 2), pred_latitude (B, H, W, 1)
         and, with a ParamNet, (B,) camera parameters. In training mode a
         regression latitude head also gives ``latitude_raw``, its pre-clamp
         output, which the overflow penalty reads; ``generator`` draws the
-        stochastic-depth masks (None: the global generator)."""
+        stochastic-depth masks (None: the global generator); rows = (first,
+        total) places ``images`` in a data-parallel global batch, so the
+        masks are that batch's (``mit.DropPath.sample``)."""
         cfg = self.cfg
-        hl = self.backbone(images, generator)
+        hl = self.backbone(images, generator, rows)
         ll = self.ll_enc(images)
         out: dict[str, torch.Tensor] = {}
         if cfg.gravity is not None:

@@ -122,6 +122,46 @@ def _up2x_axis_torch(x: torch.Tensor, axis: int) -> torch.Tensor:
     return y.reshape(*x.shape[:axis], 2 * n, *x.shape[axis + 1:])
 
 
+def _up2x_adjoint_axis(g: torch.Tensor, axis: int) -> torch.Tensor:
+    """The adjoint of ``_up2x_axis_torch`` along ``axis``: input row i gets
+    0.75 of the two output rows it centres, 0.25 of out[2i + 2] and of
+    out[2i - 1], and the edge rows the clamped taps of out[0] and
+    out[2n - 1]. Elementwise, in a fixed order."""
+    axis %= g.ndim
+    n = g.shape[axis] // 2
+    ge, go = g.unflatten(axis, (n, 2)).unbind(axis + 1)
+    zero = torch.zeros_like(ge.narrow(axis, 0, 1))
+    gx = 0.75 * (ge + go) + 0.25 * (torch.cat([ge.narrow(axis, 1, n - 1), zero], axis)
+                                    + torch.cat([zero, go.narrow(axis, 0, n - 1)], axis))
+    gx.narrow(axis, 0, 1).add_(0.25 * ge.narrow(axis, 0, 1))
+    gx.narrow(axis, n - 1, 1).add_(0.25 * go.narrow(axis, n - 1, 1))
+    return gx
+
+
+class _Up2xBilinear(torch.autograd.Function):
+    """``F.interpolate``'s 2x bilinear upsample of channels-last (..., H, W,
+    C), with a backward that gives the same gradient without CUDA's
+    atomic adds (``_up2x_adjoint_axis`` over W, then H, in float32 or
+    wider): a training step on the card is then reproducible."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return resize_bilinear(x, 2 * x.shape[-3], 2 * x.shape[-2])
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        g = g.to(torch.promote_types(g.dtype, torch.float32))
+        return _up2x_adjoint_axis(_up2x_adjoint_axis(g, -2), -3).to(ctx.dtype)
+
+
+def up2x_bilinear(x: torch.Tensor) -> torch.Tensor:
+    """2x bilinear upsample of a float channels-last (..., H, W, C) tensor,
+    as ``resize_bilinear``, with a deterministic backward."""
+    return _Up2xBilinear.apply(x)
+
+
 def _down2x_axis_pil(x: torch.Tensor, axis: int) -> torch.Tensor:
     """Exact 2x downsample along ``axis`` with PIL bilinear's (antialiased
     triangle) taps: interior out[i] = 0.125 x[2i-1] + 0.375 x[2i] + 0.375
@@ -270,8 +310,11 @@ def make_fused_preprocess(
 def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Resize channels-last (..., H, W, C) -> (..., out_h, out_w, C) with
     F.interpolate(mode='nearest') semantics, by index (the rows of
-    ``_nearest_matrix``)."""
+    ``_nearest_matrix``); a whole-factor downsample is a strided slice, whose
+    backward, unlike index_select's on CUDA, adds nothing atomically."""
     h, w = x.shape[-3], x.shape[-2]
+    if h % out_h == 0 and w % out_w == 0:
+        return x[..., :: h // out_h, :: w // out_w, :]
     idx_h = torch.from_numpy(np.minimum((np.arange(out_h) * h) // out_h, h - 1)).to(x.device)
     idx_w = torch.from_numpy(np.minimum((np.arange(out_w) * w) // out_w, w - 1)).to(x.device)
     return x.index_select(-3, idx_h).index_select(-2, idx_w)

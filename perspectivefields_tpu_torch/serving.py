@@ -58,7 +58,14 @@ class BatchPredictor:
     Args:
         model: a PerspectiveFields instance (CUDA or CPU).
         batch_size: device batch; the tail batch is padded by repeating the
-            last frame's pointer, and the padded rows are dropped.
+            last frame's pointer, and the padded rows are dropped. Should
+            be a multiple of the device count when a mesh is used.
+        mesh: optional devices to split each batch over (a replica of the
+            model on each, ``PerspectiveFields.forward_split``); defaults
+            to the model's ``replica_devices`` (every local CUDA device,
+            the model's own first, where there are several and the model
+            was given no device index) when ``use_mesh``.
+        use_mesh: False keeps every batch on the model's device.
         wire: "u8" (host resize, uint8 to the device, normalize there) or
             "f32" (fused host resize + normalize, float32 to the device).
         select: optional subset of output keys to return per image (e.g.
@@ -84,6 +91,8 @@ class BatchPredictor:
         self,
         model: PerspectiveFields,
         batch_size: int = 64,
+        mesh: Sequence | None = None,
+        use_mesh: bool = True,
         wire: str = "u8",
         select: Sequence[str] | None = None,
         depth: int = 2,
@@ -97,6 +106,9 @@ class BatchPredictor:
             raise ValueError(f"depth must be >= 1, got {depth}")
         self.model = model
         self.batch_size = batch_size
+        if mesh is None and use_mesh:
+            mesh = model.replica_devices
+        self.mesh = [torch.device(d) for d in mesh] if mesh else None
         self.timer = StageTimer()
         self.wire = wire
         self.select = tuple(select) if select is not None else None
@@ -105,7 +117,11 @@ class BatchPredictor:
         self._pack_modes: dict[str, str] = {}  # key -> "u8" | "f16" | "f32" | "raw"
         # u8 wire: the forward normalizes on the device; f32 wire: the host's
         # fused native preprocess already did
-        self._fwd = model._forward_fn if wire == "u8" else model._forward_prenormalized_fn
+        prenormalized = wire == "f32"
+        if self.mesh is not None:
+            self._fwd = lambda x: model.forward_split(x, self.mesh, prenormalized)
+        else:
+            self._fwd = lambda x: model._network(model.model, x, model.device, prenormalized)
         self._slots: list[list] = []  # ring of [pinned input batch, event of its last copy]
         self._next_slot = 0
 

@@ -7,6 +7,15 @@ loader that yields the same batch dict.
 
     python -m perspectivefields_tpu_torch.tools.train --steps 200 --batch 16 --size 320
     python -m perspectivefields_tpu_torch.tools.train --steps 2 --batch 2 --size 64 --tiny --device cpu
+    torchrun --nproc_per_node=N -m perspectivefields_tpu_torch.tools.train --steps 200 --batch 32
+
+Under torchrun the ranks form one data-parallel mesh (``parallel.make_mesh``,
+as JAX's trainer lays every device on "data"): ``--batch`` is the global
+batch and each rank renders and trains on its own rows of it; the step is
+the one-process step on the whole batch. Rank 0 logs and writes the
+checkpoints and ``--out``, the others wait at a barrier; every rank
+restores. NCCL is the CUDA backend; it refuses two ranks on one GPU, so
+pass ``--backend gloo`` there (and on the CPU).
 
 The full-width model is MiT-b3 at 320^2 with regression heads and a
 ParamNetConvNextRegress at input 64, in bfloat16 autocast on float32
@@ -23,6 +32,7 @@ import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..config import (
     BackboneConfig,
@@ -56,10 +66,13 @@ def model_config(tiny: bool, size: int) -> ModelConfig:
 
 def resolve_device(name: str) -> torch.device:
     """The device asked for; "cuda" without a card raises (no CPU
-    fallback)."""
+    fallback). Under torchrun a bare "cuda" is this rank's card
+    (LOCAL_RANK modulo the cards)."""
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device found; pass --device cpu to run on the CPU")
+    if dev.type == "cuda" and dev.index is None and "LOCAL_RANK" in os.environ:
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
     return dev
 
 
@@ -89,24 +102,42 @@ def main(argv=None):
     ap.add_argument("--chunk", type=int, default=10,
                     help="steps per loop call (metrics are read once a call); 1 = one step a call")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--backend", default=None,
+                    help="process-group backend under torchrun: nccl (CUDA default) or gloo")
     args = ap.parse_args(argv)
 
     from ..checkpoint import restore_train_state, save_params, save_train_state
     from ..data import data_iterator, make_step_batch_fn
+    from ..parallel import batch_rows, init_distributed, make_mesh
     from ..train import create_train_state, make_train_loop, make_train_step
 
     device = resolve_device(args.device)
+    mesh = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        init_distributed(backend=args.backend or ("nccl" if device.type == "cuda" else "gloo"))
+        mesh = make_mesh(device_type=device.type)
+    main_rank = mesh is None or dist.get_rank() == 0
+
+    def log(msg):
+        if main_rank:
+            print(msg, flush=True)
+
+    def sync():  # the other ranks wait for rank 0's writes
+        if mesh is not None:
+            dist.barrier()
+
+    rows = batch_rows(mesh, args.batch)
     cfg = model_config(args.tiny, args.size)
     model = build_model(cfg, device, remat=not args.tiny)
     dtype = torch.float32 if args.tiny else torch.bfloat16
-    state = create_train_state(model, learning_rate=args.lr)
+    state = create_train_state(model, learning_rate=args.lr, mesh=mesh)
 
     start = 0
     if args.ckpt_dir and os.path.isdir(args.ckpt_dir):
         try:
             state = restore_train_state(args.ckpt_dir, state)
             start = state.step
-            print(f"resumed from {args.ckpt_dir} at step {start}")
+            log(f"resumed from {args.ckpt_dir} at step {start}")
         except FileNotFoundError as exc:
             if any(d.startswith("step_") for d in os.listdir(args.ckpt_dir)):
                 # checkpoints exist but none restored (another config?):
@@ -116,7 +147,7 @@ def main(argv=None):
                     f"({exc.__cause__!r}); refusing to start fresh. Point --ckpt-dir "
                     "elsewhere to begin a new run."
                 )
-            print(f"no restorable checkpoint under {args.ckpt_dir}; starting fresh")
+            log(f"no restorable checkpoint under {args.ckpt_dir}; starting fresh")
 
     # the trainer subtracts pixel_mean only (JAX tools/train.py);
     # evaluate_pairs also divides by pixel_std
@@ -130,17 +161,21 @@ def main(argv=None):
     def maybe_ckpt(prev_step, now_step):
         # whenever a multiple of --ckpt-every falls in (prev_step, now_step]
         if args.ckpt_dir and now_step // args.ckpt_every > prev_step // args.ckpt_every:
-            save_train_state(state, args.ckpt_dir)
-            print(f"checkpointed step {now_step} -> {args.ckpt_dir}", flush=True)
+            if main_rank:
+                save_train_state(state, args.ckpt_dir)
+            log(f"checkpointed step {now_step} -> {args.ckpt_dir}")
+            sync()
 
     t0 = time.time()
     if args.chunk > 1:
-        batch_fn = make_step_batch_fn(1, batch_size=args.batch, im_hw=cfg.resize, device=device)
+        batch_fn = make_step_batch_fn(1, batch_size=args.batch, im_hw=cfg.resize, device=device,
+                                      rows=rows)
         loops = {}
 
         def loop_for(n):
             if n not in loops:
-                loops[n] = make_train_loop(cfg, batch_fn, n, prepare=prepare, compute_dtype=dtype)
+                loops[n] = make_train_loop(cfg, batch_fn, n, prepare=prepare, compute_dtype=dtype,
+                                           mesh=mesh)
             return loops[n]
 
         i, warm = start, None
@@ -150,28 +185,29 @@ def main(argv=None):
             i += n
             loss = float(metrics["loss"][-1])
             if warm is None:
-                print(f"step {i:5d}  loss {loss:.4f}  (first call: {time.time() - t0:.1f}s)",
-                      flush=True)
+                log(f"step {i:5d}  loss {loss:.4f}  (first call: {time.time() - t0:.1f}s)")
                 warm = (time.time(), i)
             else:
                 rate = args.batch * (i - warm[1]) / (time.time() - warm[0])
-                print(f"step {i:5d}  loss {loss:.4f}  ({rate:.1f} img/s)", flush=True)
+                log(f"step {i:5d}  loss {loss:.4f}  ({rate:.1f} img/s)")
             maybe_ckpt(i - n, i)
     else:
-        step_fn = make_train_step(cfg, compute_dtype=dtype)
+        step_fn = make_train_step(cfg, compute_dtype=dtype, mesh=mesh)
         it = data_iterator(1, batch_size=args.batch, im_hw=cfg.resize, start_step=start,
-                           device=device)
+                           device=device, rows=rows)
         for i in range(start, args.steps):
             state, metrics = step_fn(state, prepare(next(it)))
             if (i + 1) % args.log_every == 0 or i == start:
                 loss = float(metrics["loss"])
                 rate = args.batch * (i + 1 - start) / (time.time() - t0)
-                print(f"step {i + 1:5d}  loss {loss:.4f}  ({rate:.1f} img/s)", flush=True)
+                log(f"step {i + 1:5d}  loss {loss:.4f}  ({rate:.1f} img/s)")
             maybe_ckpt(i, i + 1)
 
     if args.out:
-        save_params(state.model, args.out)
-        print(f"saved {args.out}")
+        if main_rank:
+            save_params(state.model, args.out)
+        log(f"saved {args.out}")
+        sync()
     return state
 
 

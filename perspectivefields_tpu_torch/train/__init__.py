@@ -19,6 +19,7 @@ from .train_step import (
     create_train_state,
     make_train_loop,
     make_train_step,
+    warmup_cosine_decay_schedule,
 )
 
 __all__ = [
@@ -34,4 +35,5 @@ __all__ = [
     "create_train_state",
     "make_train_step",
     "make_train_loop",
+    "warmup_cosine_decay_schedule",
 ]

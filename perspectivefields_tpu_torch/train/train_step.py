@@ -1,7 +1,6 @@
 """The training step: AdamW with a global-norm clip, under bf16 autocast.
 
-Port of perspectivefields_tpu/train/train_step.py without the mesh (one
-device; the data-parallel form is future work). ``TrainState`` holds the
+Port of perspectivefields_tpu/train/train_step.py. ``TrainState`` holds the
 module, its optimizer and the step. The optimizer is optax's
 ``chain(clip_by_global_norm(grad_clip), adamw(lr, weight_decay))`` in torch:
 ``torch.optim.AdamW`` with optax's defaults (betas 0.9 / 0.999, eps 1e-8)
@@ -15,18 +14,38 @@ Precision: the parameters stay float32 and the forward runs under
 ``.to(bfloat16)`` the module for training: that stores bf16 weights, as
 ``PerspectiveFields(compute_dtype="bfloat16")`` does for inference.
 
+Reproducible on the card, as JAX's step is on a TPU: the forward and
+backward run with cuDNN's deterministic convolution algorithms, and the
+heads' upsampling has a backward without atomic adds
+(``ops.image.up2x_bilinear``), so a seeded run gives the same losses every
+time.
+
 JAX's ``make_train_loop`` runs ``chunk`` steps in one XLA program
 (``lax.scan``); here it is a Python loop of ``chunk`` steps that returns
 their metrics stacked.
+
+With a (data, model) ``mesh`` (``parallel.make_mesh``) each rank steps on
+its own rows of the global batch (``parallel.batch_rows``) and the step is
+the one-process step on the whole batch, as JAX's GSPMD step is: the
+losses' denominators are summed over the data group (``losses``), so the
+ranks' gradients sum to the global loss's; one all-reduce sums them, and
+the clip and the AdamW update then run on the same gradient on every rank;
+the stochastic-depth masks are the global batch's rows. Ranks that share
+a data index (a model axis > 1) compute the same step: the tensor-parallel
+layout is the inference forward's (``parallel.sharded_forward``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 from typing import Callable, Optional, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from ..data import seeded_generator
 from .losses import total_loss
@@ -48,6 +67,7 @@ def create_train_state(
     learning_rate: Schedule = 1e-4,
     weight_decay: float = 1e-2,
     grad_clip: Optional[float] = 1.0,
+    mesh=None,
 ) -> TrainState:
     """Wrap an initialised float32 ``model`` (on its device) with AdamW.
 
@@ -56,12 +76,38 @@ def create_train_state(
     grad_clip: the global-norm clip (None turns it off). It is on by
     default: the masked field losses spike on batches whose cameras give
     mostly invalid fields, and in JAX an unclipped spike turned a healthy
-    run to NaN (JAX create_train_state)."""
+    run to NaN (JAX create_train_state).
+    mesh: every rank's parameters become the mesh's first rank's
+    (``parallel.replicate``), so the ranks start as one."""
+    if mesh is not None:
+        from ..parallel import replicate
+
+        replicate(mesh, model)
     lr0 = learning_rate(0) if callable(learning_rate) else learning_rate
     opt = torch.optim.AdamW(
         model.parameters(), lr=lr0, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay
     )
     return TrainState(model, opt, 0, learning_rate, grad_clip)
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
+                                 decay_steps: int, end_value: float = 0.0) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule: a linear ramp from init_value to
+    peak_value over warmup_steps, then a cosine decay to end_value that ends
+    at step decay_steps (which counts the warmup) and holds there."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    span = decay_steps - warmup_steps
+    if span <= 0:
+        raise ValueError(f"decay_steps ({decay_steps}) must exceed warmup_steps ({warmup_steps})")
+
+    def schedule(step: int) -> float:
+        if step < warmup_steps:  # optax's linear_schedule; warmup 0 skips it
+            return init_value + (peak_value - init_value) * step / warmup_steps
+        t = min(step - warmup_steps, span)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * t / span))
+        return peak_value * ((1.0 - alpha) * cosine + alpha)
+
+    return schedule
 
 
 def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
@@ -76,7 +122,41 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Te
     return norm
 
 
-def _make_step_body(cfg, loss_fn: Callable, compute_dtype: torch.dtype):
+def _data_group(mesh):
+    """(process group, size, index) of this rank on the mesh's data axis."""
+    return mesh.get_group("data"), mesh["data"].size(), mesh.get_local_rank("data")
+
+
+def _all_reduce_sum(tensors: list[torch.Tensor], group) -> None:
+    """Sum each tensor over the group in place, in one all-reduce."""
+    flat = _flatten_dense_tensors(tensors)
+    dist.all_reduce(flat, group=group)
+    for t, r in zip(tensors, _unflatten_dense_tensors(flat, tensors)):
+        t.copy_(r)
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic convolution algorithms, the caller's setting
+    restored after."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def _make_step_body(cfg, loss_fn: Callable, compute_dtype: torch.dtype, mesh=None):
+    group = reduce = None
+    if mesh is not None:
+        group, n_data, index = _data_group(mesh)
+
+        def reduce(count: torch.Tensor) -> torch.Tensor:
+            count = count.clone()
+            dist.all_reduce(count, group=group)
+            return count
+
     def step(state: TrainState, batch: dict):
         model, opt = state.model, state.optimizer
         model.train()
@@ -86,16 +166,22 @@ def _make_step_body(cfg, loss_fn: Callable, compute_dtype: torch.dtype):
         # the stochastic-depth masks differ per step and are reproducible:
         # (0, step) seeds them, as JAX folds the step into PRNGKey(0)
         gen = seeded_generator(0, state.step, device=dev)
-        with torch.autocast(dev.type, dtype=torch.bfloat16,
-                            enabled=compute_dtype == torch.bfloat16):
-            out = model(images, generator=gen)
-        out = {k: v.float() if v.is_floating_point() else v for k, v in out.items()}
-        loss, parts = loss_fn(out, batch, cfg)
-        loss.backward()
+        rows = None if group is None else (index * images.shape[0], n_data * images.shape[0])
+        with _deterministic_cudnn():
+            with torch.autocast(dev.type, dtype=torch.bfloat16,
+                                enabled=compute_dtype == torch.bfloat16):
+                out = model(images, generator=gen, rows=rows)
+            out = {k: v.float() if v.is_floating_point() else v for k, v in out.items()}
+            loss, parts = loss_fn(out, batch, cfg) if reduce is None else loss_fn(out, batch, cfg, reduce)
+            loss.backward()
         params = [p for g in opt.param_groups for p in g["params"]]
         for p in params:
             if p.grad is None:  # as optax: an unreached parameter has a 0 gradient
                 p.grad = torch.zeros_like(p)
+        metrics = [loss.detach(), *(v.detach() for v in parts.values())]
+        if group is not None:
+            # each rank's loss is its share of the global batch's loss
+            _all_reduce_sum([p.grad for p in params] + metrics, group)
         if state.grad_clip is not None:
             clip_by_global_norm_([p.grad for p in params], state.grad_clip)
         lr = state.learning_rate
@@ -103,20 +189,22 @@ def _make_step_body(cfg, loss_fn: Callable, compute_dtype: torch.dtype):
             g["lr"] = lr(state.step) if callable(lr) else lr
         opt.step()
         state.step += 1
-        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
-        return state, metrics
+        return state, dict(zip(["loss", *parts], metrics))
 
     return step
 
 
 def make_train_step(cfg, loss_fn: Callable = total_loss,
-                    compute_dtype: torch.dtype = torch.float32):
+                    compute_dtype: torch.dtype = torch.float32, mesh=None):
     """The train step: (state, batch) -> (state, metrics), updating the
     state in place. batch: ``image`` (B, H, W, 3) normalized NHWC on the
     model's device, plus the gt_* targets of ``losses.total_loss``.
     compute_dtype bfloat16 runs the forward under autocast on the float32
-    parameters. The metrics stay on the device (no host sync)."""
-    return _make_step_body(cfg, loss_fn, compute_dtype)
+    parameters. The metrics stay on the device (no host sync). With a
+    ``mesh`` the batch is this rank's rows of the global batch, the
+    metrics are the global batch's and ``loss_fn`` takes the denominators'
+    ``reduce`` as its fourth argument (module docstring)."""
+    return _make_step_body(cfg, loss_fn, compute_dtype, mesh)
 
 
 def make_train_loop(
@@ -126,12 +214,14 @@ def make_train_loop(
     loss_fn: Callable = total_loss,
     prepare: Optional[Callable] = None,
     compute_dtype: torch.dtype = torch.float32,
+    mesh=None,
 ):
     """(state) -> (state, stacked metrics): ``chunk`` steps of
     batch_fn(step) -> prepare -> train step, each metric stacked to
     (chunk,). batch_fn takes the absolute step (``data.make_step_batch_fn``),
-    so the stream stays seekable across restarts."""
-    step_body = _make_step_body(cfg, loss_fn, compute_dtype)
+    so the stream stays seekable across restarts; with a ``mesh`` it gives
+    this rank's rows (``make_step_batch_fn(..., rows=batch_rows(mesh, B))``)."""
+    step_body = _make_step_body(cfg, loss_fn, compute_dtype, mesh)
 
     def loop(state: TrainState):
         rows = []

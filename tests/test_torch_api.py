@@ -336,6 +336,13 @@ def test_device_none_means_cuda_and_raises_without_it(monkeypatch):
         PerspectiveFields("custom", config=CFG)
 
 
+@pytest.mark.parametrize("device", ["cuda", "cuda:0", torch.device("cuda")])
+def test_cuda_device_raises_without_a_card(monkeypatch, device):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PerspectiveFields("custom", config=CFG, device=device)
+
+
 def test_kernel_default_and_gate_stay_off_the_cpu(jax_model):
     model = PerspectiveFields(
         "custom", config=CFG, params=jax_model.params, device="cpu",
@@ -517,15 +524,17 @@ def test_native_preprocess_is_bit_exact_pil():
 
 
 def test_port_runs_without_jax():
-    """The card's machine has no JAX: import the port (serving, profiling,
-    bench_serving, the pano ops, pano_camera, config_yaml, data, train,
-    evaluation and the tools too) and chip_smoke's imports, run tiny CPU
-    forwards with the fused flags and through BatchPredictor, and two
-    ``tools.train --tiny`` steps, with jax, flax, optax, orbax and the JAX
-    package made unimportable."""
+    """The card's machine has no JAX (and no cv2 or PIL): import the port
+    (serving, profiling, bench_serving, the pano ops, pano_camera,
+    config_yaml, data, train, evaluation, parallel, the drawing modules and
+    every tool too) and chip_smoke's imports, run tiny CPU forwards with the
+    fused flags and through BatchPredictor, and two ``tools.train --tiny``
+    steps, with jax, flax, optax, orbax, the JAX package, cv2, PIL and
+    matplotlib made unimportable."""
     code = (
         "import sys\n"
-        "for name in ('jax', 'flax', 'optax', 'orbax', 'perspectivefields_tpu'): sys.modules[name] = None\n"
+        "for name in ('jax', 'flax', 'optax', 'orbax', 'perspectivefields_tpu', 'cv2', 'PIL', "
+        "'matplotlib'): sys.modules[name] = None\n"
         "import numpy as np, torch, warnings\n"
         "torch.set_num_threads(1)  # one of six test processes on the cores\n"
         "import chip_smoke\n"
@@ -538,6 +547,11 @@ def test_port_runs_without_jax():
         "from perspectivefields_tpu_torch.ops import pano\n"
         "from perspectivefields_tpu_torch import pano_camera, config_yaml, data, train, evaluation\n"
         "from perspectivefields_tpu_torch.tools import train as ttrain, evaluate as tevaluate\n"
+        "from perspectivefields_tpu_torch import parallel\n"
+        "from perspectivefields_tpu_torch.parallel import mesh, sharding\n"
+        "from perspectivefields_tpu_torch.tools import learning_proof, convert_checkpoint, "
+        "export_torch, dryrun_multiprocess, demo\n"
+        "from perspectivefields_tpu_torch.utils import draw, visualizer\n"
         "cfg = ModelConfig(version='custom', backbone=BackboneConfig(dims=(64, 128, 192, 256), "
         "depths=(1, 1, 1, 1), num_heads=(1, 2, 3, 4)), "
         "gravity=GravityHeadConfig(loss_type='regression', embed_dim=16, fusion_dim=16), "
@@ -571,7 +585,8 @@ def test_port_runs_without_jax():
         "assert state.step == 2\n"
         "loaded = [k for k in sys.modules if sys.modules[k] is not None]\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'flax', 'optax', 'orbax')) for k in loaded)\n"
-        "assert not any(k.split('.')[0] == 'perspectivefields_tpu' for k in loaded)\n"
+        "assert not any(k.split('.')[0] in ('perspectivefields_tpu', 'cv2', 'PIL', 'matplotlib') "
+        "for k in loaded)\n"
         "print('ok')\n"
     )
     out = subprocess.run(

@@ -68,6 +68,31 @@ def test_2x_phase_forms_match_jax_and_the_matrices(axis):
     np.testing.assert_allclose(both.numpy(), interp.numpy(), atol=1e-6)
 
 
+@pytest.mark.parametrize("shape", [(2, 1, 1, 3), (2, 2, 3, 4), (3, 5, 7, 2), (1, 10, 10, 8)])
+def test_up2x_bilinear_is_resize_bilinear_with_its_gradient(shape):
+    """The heads' upsample: resize_bilinear's forward bit for bit, and
+    F.interpolate's gradient (float64) from the deterministic adjoint."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=shape)).requires_grad_()
+    g = torch.from_numpy(rng.normal(size=(shape[0], 2 * shape[1], 2 * shape[2], shape[3])))
+    got = image.up2x_bilinear(x)
+    want = image.resize_bilinear(x, 2 * shape[1], 2 * shape[2])
+    assert torch.equal(got, want)
+    (grad_got,) = torch.autograd.grad(got, x, g)
+    (grad_want,) = torch.autograd.grad(want, x, g)
+    torch.testing.assert_close(grad_got, grad_want, rtol=1e-12, atol=1e-12)
+    assert torch.autograd.gradcheck(image.up2x_bilinear, (x.detach()[:1].requires_grad_(),))
+
+
+def test_up2x_bilinear_gradient_keeps_the_input_dtype():
+    x = torch.from_numpy(_normal(4, (2, 6, 5, 8))).to(torch.bfloat16).requires_grad_()
+    image.up2x_bilinear(x).float().square().sum().backward()
+    assert x.grad.dtype == torch.bfloat16
+    xf = x.detach().float().requires_grad_()
+    image.resize_bilinear(xf, 12, 10).square().sum().backward()
+    torch.testing.assert_close(x.grad.float(), xf.grad, rtol=1e-2, atol=1e-2)
+
+
 def test_phase_path_promotes_integer_input():
     x = _u8(2, (1, 8, 8, 8))
     got = image.resize_bilinear(torch.from_numpy(x), 4, 4, method="pil_bilinear")

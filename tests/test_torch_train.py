@@ -298,6 +298,28 @@ def test_training_after_inference_in_one_process():
     assert all(p.grad is not None for p in net.persformer_heads.parameters())
 
 
+def test_train_step_uses_deterministic_cudnn_and_restores_it():
+    """The step's forward and backward run with cuDNN's deterministic
+    algorithms (a seeded run repeats on the card); the caller's setting
+    comes back after the step."""
+    from perspectivefields_tpu_torch.data import make_step_batch_fn
+
+    cfg = model_config(True, 64)
+    net = init_random_(PersNet(cfg), seed=0)
+    seen = []
+    net.register_forward_hook(lambda *_: seen.append(torch.backends.cudnn.deterministic))
+    batch = make_step_batch_fn(1, 2, cfg.resize, device="cpu")(0)
+    batch = dict(batch, image=batch["image"] - torch.tensor(cfg.pixel_mean))
+    batch.pop("cams")
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False
+    try:
+        make_train_step(cfg)(create_train_state(net), batch)
+        assert seen == [True] and torch.backends.cudnn.deterministic is False
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
 def test_training_mode_keeps_the_state_dict():
     # DropPath has no parameters and remat wraps calls only: the same names
     # and shapes as an inference PersNet, strict loads both ways
