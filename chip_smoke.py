@@ -93,7 +93,12 @@ Phases (each fails loudly; nothing is caught and turned into success):
      B=16 batch (tools.dryrun_multiprocess --config trainer: the trainer's
      full-width model, f32, TF32 off, one step): losses within 1e-5
      (relative), the clipped gradients within 1e-5, parameters within 0.1
-     * lr wherever |g| > 1e-5 (DP_GRAD_TOL says why); inference_batch split over
+     * lr wherever |g| > 1e-5 (DP_GRAD_TOL says why); the same two ranks as
+     data=1 x model=2, the ruled Linears and their AdamW state split
+     (parallel.tensor_parallel), against the same one-process step with the
+     same bars, the replicated parameters bit-equal across the two ranks and
+     each rank's AdamW state the size param_shardings implies, each rank's
+     peak device memory printed beside the one process's; inference_batch split over
      two replicas on cuda:0 (forward_split, 16 images; the first replica
      the model itself, only the second a copy) bit-equal to the
      single path on each replica's 8 rows, 25 fused_attention launches a
@@ -165,7 +170,6 @@ from perspectivefields_tpu_torch import PerspectiveFields, bench_serving, kernel
 from perspectivefields_tpu_torch.config import model_zoo
 from perspectivefields_tpu_torch.kernels import build as kbuild
 from perspectivefields_tpu_torch.kernels import convnext_block as cb
-from perspectivefields_tpu_torch.kernels import fused_attention as fa
 from perspectivefields_tpu_torch.kernels import fused_block as fb
 from perspectivefields_tpu_torch.kernels import mixffn as mf
 from perspectivefields_tpu_torch.kernels import roofline
@@ -189,6 +193,7 @@ from perspectivefields_tpu_torch.train import create_train_state, make_train_ste
 
 # the package exports the function decoder_tail under its module's name
 dt = importlib.import_module("perspectivefields_tpu_torch.kernels.decoder_tail")
+fa = importlib.import_module("perspectivefields_tpu_torch.kernels.fused_attention")
 
 VERSION = "Paramnet-360Cities-edina-centered"
 CLS_VERSION = "PersNet-360Cities"  # classification heads: Co = 73 and 180
@@ -1687,6 +1692,50 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _mesh_step_check(tmp: Path, solo: dict, solo_s: float, n_model: int, card: str) -> None:
+    """Two gloo ranks on cuda:0, data=2 (n_model 1) or data=1 x model=2 (the
+    ruled Linears split), one step of the trainer's model against the one
+    process's (``solo``, saved under ``tmp``)."""
+    t1 = time.perf_counter()
+    ranks = dryrun.launch(2, n_model, 1, out_dir=str(tmp), timeout=300, device="cuda", config="trainer")
+    t2 = time.perf_counter()
+    ref = solo["train_losses"][0]
+    loss_d = max(abs(r["train_losses"][0] - ref) for r in ranks)
+    a, b = (torch.load(tmp / f"{role}.pt", weights_only=True) for role in ("solo", "mp"))
+    # after one step Adam's first moment is (1 - beta1) * the clipped gradient
+    grads = {k: (a["exp_avg"][k] / 0.1, b["exp_avg"][k] / 0.1) for k in a["exp_avg"]}
+    grad_d = max((ga - gb).abs().max().item() for ga, gb in grads.values())
+    param_all = max((a["params"][k] - b["params"][k]).abs().max().item() for k in a["params"])
+    beyond = sum(int(((a["params"][k] - b["params"][k]).abs() > DP_PARAM_TOL).sum()) for k in grads)
+    param_d = max(((a["params"][k] - b["params"][k]).abs() * (ga.abs() > DP_GRAD_TOL)).max().item()
+                  for k, (ga, _) in grads.items())
+    layout = ("with 8 rows each" if n_model == 1
+              else "as data=1 x model=2 (the ruled Linears and their AdamW state split)")
+    log(f"[parallel] one train step of the trainer's full-width model (f32, TF32 off, remat): "
+        f"2 gloo ranks on cuda:0 {layout} vs one process at B=16: loss {ref:.6f}, "
+        f"max|d| loss {loss_d:.2e} (bound {DP_LOSS_RTOL:.0e} relative), clipped gradients "
+        f"{grad_d:.2e} (bound {DP_GRAD_TOL:.0e}), parameters where |g| > {DP_GRAD_TOL:.0e} "
+        f"{param_d:.2e} (bound {DP_PARAM_TOL:.0e}), all parameters {param_all:.2e} ({beyond} of "
+        f"{sum(v.numel() for v in a['params'].values())} elements beyond {DP_PARAM_TOL:.0e}); one "
+        f"process {solo_s:.1f} s, two ranks {t2 - t1:.1f} s ({card})")
+    if loss_d > DP_LOSS_RTOL * max(1.0, abs(ref)) or grad_d > DP_GRAD_TOL or param_d > DP_PARAM_TOL:
+        raise AssertionError(f"[parallel] the {layout} step is not the one-process step")
+    if n_model == 1:
+        return
+    gib = 2**-30
+    log(f"[parallel] model=2: AdamW elements a moment per rank "
+        + ", ".join(f"{r['adam_elements']:,}" for r in ranks)
+        + f" (param_shardings: {ranks[0]['expected_adam_elements']:,}; one process "
+        f"{solo['adam_elements']:,}); peak device memory per rank "
+        + ", ".join(f"{r['peak_memory_bytes'] * gib:.2f}" for r in ranks)
+        + f" GiB (one process {solo['peak_memory_bytes'] * gib:.2f} GiB); replicated parameters "
+        f"bit-equal across the model group: {[r['replicated_bit_equal'] for r in ranks]}")
+    if not all(r["replicated_bit_equal"] for r in ranks) or any(
+            r["adam_elements"] != r["expected_adam_elements"] for r in ranks):
+        raise AssertionError("[parallel] model=2: replicated parameters differ across the model "
+                             "group, or a rank's AdamW state is not its shards'")
+
+
 def _parallel_check(sd, tmp: Path, card: str) -> None:
     """(c) NCCL at world size 1; two gloo ranks on cuda:0 against one
     process; inference_batch's split over two replicas on cuda:0."""
@@ -1702,29 +1751,11 @@ def _parallel_check(sd, tmp: Path, card: str) -> None:
 
     t0 = time.perf_counter()
     solo = dryrun.run("solo", "", 0, 1, 1, 1, "cuda", str(tmp), "trainer")
+    solo_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    ranks = dryrun.launch(2, 1, 1, out_dir=str(tmp), timeout=300, device="cuda", config="trainer")
-    t2 = time.perf_counter()
-    ref = solo["train_losses"][0]
-    loss_d = max(abs(r["train_losses"][0] - ref) for r in ranks)
-    a, b = (torch.load(tmp / f"{role}.pt", weights_only=True) for role in ("solo", "mp"))
-    # after one step Adam's first moment is (1 - beta1) * the clipped gradient
-    grads = {k: (a["exp_avg"][k] / 0.1, b["exp_avg"][k] / 0.1) for k in a["exp_avg"]}
-    grad_d = max((ga - gb).abs().max().item() for ga, gb in grads.values())
-    param_all = max((a["params"][k] - b["params"][k]).abs().max().item() for k in a["params"])
-    beyond = sum(int(((a["params"][k] - b["params"][k]).abs() > DP_PARAM_TOL).sum()) for k in grads)
-    param_d = max(((a["params"][k] - b["params"][k]).abs() * (ga.abs() > DP_GRAD_TOL)).max().item()
-                  for k, (ga, _) in grads.items())
-    log(f"[parallel] one train step of the trainer's full-width model (f32, TF32 off, remat): "
-        f"2 gloo ranks on cuda:0 with 8 rows each vs one process at B=16: loss {ref:.6f}, "
-        f"max|d| loss {loss_d:.2e} (bound {DP_LOSS_RTOL:.0e} relative), clipped gradients "
-        f"{grad_d:.2e} (bound {DP_GRAD_TOL:.0e}), parameters where |g| > {DP_GRAD_TOL:.0e} "
-        f"{param_d:.2e} (bound {DP_PARAM_TOL:.0e}), all parameters {param_all:.2e} ({beyond} of "
-        f"{sum(v.numel() for v in a['params'].values())} elements beyond {DP_PARAM_TOL:.0e}); one "
-        f"process {t1 - t0:.1f} s, two ranks {t2 - t1:.1f} s ({card})")
-    if loss_d > DP_LOSS_RTOL * max(1.0, abs(ref)) or grad_d > DP_GRAD_TOL or param_d > DP_PARAM_TOL:
-        raise AssertionError("[parallel] the data-parallel step is not the one-process step")
+    for n_model in (1, 2):
+        _mesh_step_check(tmp, solo, solo_s, n_model, card)
+        torch.cuda.empty_cache()
 
     rng = np.random.default_rng(SEED + 12)
     imgs = list(rng.integers(0, 256, size=(SPLIT_IMAGES, 640, 640, 3), dtype=np.uint8))

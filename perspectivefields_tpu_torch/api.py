@@ -148,6 +148,32 @@ def _load_file(model: PersNet, path: str) -> None:
         load_into(model, load_released(path))
 
 
+class ResizeTransform:
+    """The reference's resize (perspectivefields.py:16-67), numpy in and
+    numpy out: PIL-exact bilinear for uint8 (``native.pil_resize_uint8``),
+    torch bilinear for float (``ops.image.resize_bilinear`` in float32 on
+    the CPU). 2-D and 1-channel images come back in their own shape. Port
+    of perspectivefields_tpu/api.py:ResizeTransform."""
+
+    def __init__(self, new_h: int, new_w: int):
+        self.new_h = new_h
+        self.new_w = new_w
+
+    def apply_image(self, img: np.ndarray) -> np.ndarray:
+        if img.dtype == np.uint8:
+            squeeze = img.ndim == 3 and img.shape[2] == 1
+            arr = img[:, :, 0] if squeeze else img
+            out = native.pil_resize_uint8(np.ascontiguousarray(arr), self.new_h, self.new_w)
+            return out[:, :, None] if squeeze else out
+        arr = np.asarray(img, np.float32)
+        squeeze = arr.ndim == 2
+        if squeeze:
+            arr = arr[:, :, None]
+        out = resize_bilinear(torch.from_numpy(np.ascontiguousarray(arr)), self.new_h, self.new_w,
+                              "torch_bilinear").numpy()
+        return out[:, :, 0] if squeeze else out
+
+
 class PerspectiveFields:
     """Single-image camera calibration model.
 

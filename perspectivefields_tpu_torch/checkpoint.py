@@ -16,7 +16,11 @@ writes one (``save_params``).
 Training state (JAX checkpoint/io.py's ``save_train_state`` /
 ``restore_train_state``, orbax there) is saved with ``torch.save`` under
 ``path/step_<n>/``: the model's and the optimizer's state dicts and the
-step, the newest ``keep`` kept.
+step, the newest ``keep`` kept. A tensor-parallel state
+(``parallel.tensor_parallel``) is saved whole, in the one-process format:
+the shards of each parameter and of its optimizer moments are gathered
+under the reference's names, and restoring takes this rank's slice, so a
+checkpoint moves between one process and a split state either way.
 """
 
 from __future__ import annotations
@@ -386,24 +390,64 @@ def _step_dirs(base: str) -> list[str]:
     return sorted(d for d in os.listdir(base) if d.startswith("step_")) if os.path.isdir(base) else []
 
 
-def save_train_state(state, path: str, keep: int = 2) -> str:
+def _optimizer_params(optimizer) -> list:
+    """The optimizer's parameters in its state dict's index order."""
+    return [p for g in optimizer.param_groups for p in g["params"]]
+
+
+def _whole_optimizer_state(optimizer) -> dict:
+    """``optimizer.state_dict()`` with each split parameter's moments
+    gathered whole (a collective over the model group when any is split)."""
+    from .parallel.tensor_parallel import gather_like
+
+    sd = optimizer.state_dict()
+    for i, p in enumerate(_optimizer_params(optimizer)):
+        if i in sd["state"]:
+            sd["state"][i] = {k: gather_like(v, p) if torch.is_tensor(v) and v.shape == p.shape else v
+                              for k, v in sd["state"][i].items()}
+    return sd
+
+
+def _local_optimizer_state(optimizer, sd: dict) -> dict:
+    """A whole optimizer state dict with each split parameter's moments cut
+    to this rank's slice."""
+    from .parallel.tensor_parallel import model_shard
+
+    state = dict(sd["state"])
+    for i, p in enumerate(_optimizer_params(optimizer)):
+        shard = model_shard(p)
+        if shard is None or i not in state:
+            continue
+        whole = shard.full_shape(p.shape)
+        if any(torch.is_tensor(v) and v.dim() and v.shape != whole for v in state[i].values()):
+            raise ValueError(f"optimizer state {i} is not of its parameter's whole shape {tuple(whole)}")
+        state[i] = {k: shard.local(v) if torch.is_tensor(v) and v.dim() else v
+                    for k, v in state[i].items()}
+    return dict(sd, state=state)
+
+
+def save_train_state(state, path: str, keep: int = 2, write: bool = True) -> str:
     """Persist a ``train.TrainState`` (model and optimizer state dicts, step)
     as ``path/step_<n>/state.pt`` and keep the newest ``keep`` step
     directories. The directory is written under a temporary name and
     renamed, so a crash mid-save leaves the older checkpoints whole.
-    Returns the step directory."""
+    Returns the step directory.
+
+    A tensor-parallel state is gathered whole first, a collective: every
+    rank of its model group calls this, and only a rank with ``write``
+    writes."""
+    blob = {
+        "model": state.model.state_dict(),
+        "optimizer": _whole_optimizer_state(state.optimizer),
+        "step": int(state.step),
+    }
     base = os.path.abspath(path)
-    os.makedirs(base, exist_ok=True)
     final = os.path.join(base, f"step_{int(state.step):08d}")
+    if not write:
+        return final
+    os.makedirs(base, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=".saving_", dir=base)
-    torch.save(
-        {
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "step": int(state.step),
-        },
-        os.path.join(tmp, _STATE_FILE),
-    )
+    torch.save(blob, os.path.join(tmp, _STATE_FILE))
     if os.path.isdir(final):
         shutil.rmtree(final)
     os.replace(tmp, final)
@@ -425,7 +469,7 @@ def _load_state(cand: str, template) -> None:
     saved_opt = copy.deepcopy(template.optimizer.state_dict())
     try:
         template.model.load_state_dict(got, strict=True)
-        template.optimizer.load_state_dict(blob["optimizer"])
+        template.optimizer.load_state_dict(_local_optimizer_state(template.optimizer, blob["optimizer"]))
         template.step = int(blob["step"])
     except Exception:
         template.model.load_state_dict(saved_model)
@@ -435,8 +479,8 @@ def _load_state(cand: str, template) -> None:
 
 def restore_train_state(path: str, template):
     """Restore the newest usable checkpoint under ``path`` into ``template``
-    (a freshly made ``TrainState`` of the same model and optimizer) and
-    return it. Step directories are tried newest first; an unusable one
+    (a freshly made ``TrainState`` of the same model and optimizer, whole or
+    tensor-parallel: every rank of a model group calls it) and return it. Step directories are tried newest first; an unusable one
     (partial, corrupt, or of another model) is skipped with a warning.
     Raises FileNotFoundError, chained to the last failure, when none
     restores."""

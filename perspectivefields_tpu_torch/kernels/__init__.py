@@ -1,11 +1,14 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
 PyTorch version. Sources live in ``perspectivefields_tpu_torch/csrc``.
 
-``decoder_tail`` is exported as a function, as the JAX package exports it;
-its module (launch counter, plain version) is reached by
-``importlib.import_module("perspectivefields_tpu_torch.kernels.decoder_tail")``.
+``fused_attention`` and ``decoder_tail`` are exported as functions, as the
+JAX package exports them; so ``kernels.fused_attention`` is the function,
+and its module (launch counter, plain version, route) is reached by
+``importlib.import_module("perspectivefields_tpu_torch.kernels.fused_attention")``
+(likewise ``decoder_tail``).
 """
 
 from .decoder_tail import decoder_tail
+from .fused_attention import fused_attention
 
-__all__ = ["decoder_tail"]
+__all__ = ["fused_attention", "decoder_tail"]

@@ -27,8 +27,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from . import fused_attention as fa
 from . import hopper_plan as hp
+from .fused_attention import HEAD_DIM, MAX_KEYS, fused_attention_reference
 from . import mixffn as mf
 from .build import check_inference_only, library, raise_on_error
 from .hopper_plan import CLUSTERS, MAX_STAGES, SMEM_LIMIT, STAGE_BYTES  # noqa: F401 (re-exported)
@@ -41,7 +41,6 @@ LAUNCHES = 0
 # kernel's (kSub, Layout; halo up to 128 tokens) and the bf16 kernel's
 # (kRows, BlockLayout; the ring of hopper_gemm.cuh)
 SUB_ROWS = 32
-MAX_KEYS = fa.MAX_KEYS
 MAX_HALO = mf.MAX_HALO
 ROWS_BF16 = 64  # the bf16 kernel's halo tokens: wgmma's M
 MAX_WIDTH_BF16 = 640  # the bf16 kernel's widest C (kMaxCB): two 64 x C operands fit
@@ -103,7 +102,7 @@ def fused_block_reference(
     grew past the 5e-4 field tolerance of the f32 path."""
     cdt, f32 = ln1x.dtype, torch.float32
     b, n, c = ln1x.shape
-    a = fa.fused_attention_reference(ln1x, kv_in, wq, bq, wkv, bkv, wproj, bproj, num_heads, scale)
+    a = fused_attention_reference(ln1x, kv_in, wq, bq, wkv, bkv, wproj, bproj, num_heads, scale)
     x2 = (res.to(f32) + a.to(f32)).to(cdt)
     y = F.layer_norm(x2.to(f32), (c,), ln2s.to(f32), ln2b.to(f32), eps).to(cdt)
     o = mf.mixffn_reference(y.reshape(b, h, w, c), w1, b1, dwk, dwb, w2, b2).reshape(b, n, c)
@@ -233,8 +232,8 @@ def check_kernel_args(
     m = kv_in.shape[1]
     if h < 1 or w < 1 or n != h * w:
         raise ValueError(f"fused_block: N={n} tokens is not the {h}x{w} grid")
-    if num_heads <= 0 or c != num_heads * fa.HEAD_DIM:
-        raise ValueError(f"fused_block: needs head_dim {fa.HEAD_DIM}, got C={c} heads={num_heads}")
+    if num_heads <= 0 or c != num_heads * HEAD_DIM:
+        raise ValueError(f"fused_block: needs head_dim {HEAD_DIM}, got C={c} heads={num_heads}")
     if not 1 <= m <= MAX_KEYS:
         raise ValueError(f"fused_block: needs 1 <= M <= {MAX_KEYS}, got M={m}")
     hid = 4 * c

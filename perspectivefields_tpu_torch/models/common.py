@@ -7,7 +7,6 @@ import math
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate
 
 
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -18,14 +17,12 @@ def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
-def replicated(t: torch.Tensor) -> torch.Tensor:
-    """``t``; a DTensor (the tensor-parallel forward, ``parallel.sharding``)
-    redistributed to Replicate. DTensor's convolution does not reduce a
-    kernel whose sums are split over ranks, so a kernel composed from a
-    sharded weight is gathered before it reaches a conv."""
-    if isinstance(t, DTensor):
-        return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
-    return t
+def linear_weights(linear: nn.Module) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """A Linear's whole weight and bias, for a kernel composed from them. A
+    tensor-parallel Linear (``parallel.tensor_parallel``) gathers its
+    shards, with their gradient; a plain one gives its own."""
+    full = getattr(linear, "full_weights", None)
+    return full() if full is not None else (linear.weight, linear.bias)
 
 
 @torch.no_grad()

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.image import up2x_bilinear as _up2x
-from .common import conv_nhwc, replicated
+from .common import conv_nhwc, linear_weights
 
 
 class FrozenBatchNorm(nn.Module):
@@ -216,12 +216,13 @@ class SegFormerDecoder(nn.Module):
         if not self.fuse_embed:
             return conv_nhwc(proc, emb(c))
         cdt = proc.weight.dtype
+        w_emb, b_emb = linear_weights(emb)
         # compose in f32, cast once
-        k = replicated(torch.einsum("ec,feij->fcij", emb.weight.float(), proc.weight.float()).to(cdt))
+        k = torch.einsum("ec,feij->fcij", w_emb.float(), proc.weight.float()).to(cdt)
         y = F.conv2d(c.to(cdt).permute(0, 3, 1, 2), k, padding=1)
         # the embed bias reaches every tap that lands inside the zero-padded
         # embedded map: a 3x3 conv of a ones map
-        kb = replicated(torch.einsum("e,feij->fij", emb.bias.float(), proc.weight.float()).to(cdt))
+        kb = torch.einsum("e,feij->fij", b_emb.float(), proc.weight.float()).to(cdt)
         ones = torch.ones((1, 1, c.shape[1], c.shape[2]), dtype=cdt, device=c.device)
         bias_map = F.conv2d(ones, kb[:, None], padding=1)
         return (y + bias_map + proc.bias.to(cdt)[:, None, None]).permute(0, 2, 3, 1)

@@ -23,18 +23,22 @@ inference-only: a block routed to one raises under autograd.
 
 from __future__ import annotations
 
+import importlib
+
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import BackboneConfig
 
-from ..kernels import fused_attention as fa
 from ..kernels import stage1_attention as s1
 from ..kernels.fused_block import fused_block, fused_block_viable, takes_width
 from ..kernels.mixffn import mixffn
 from ..ops.activations import gelu
 from .common import conv_nhwc
+
+# the module (``kernels.fused_attention`` is its function)
+fa = importlib.import_module("..kernels.fused_attention", __package__)
 
 
 def mit_spec(name: str) -> BackboneConfig:

@@ -1,6 +1,6 @@
 """Multi-process execution: process groups, device meshes, data-parallel
-batches and the tensor-parallel parameter layout (port of
-perspectivefields_tpu/parallel)."""
+batches and the tensor-parallel layout, whose split Linears training and
+``sharded_forward`` run on (port of perspectivefields_tpu/parallel)."""
 
 from .mesh import init_distributed, make_mesh
 from .sharding import (
@@ -11,6 +11,7 @@ from .sharding import (
     shard_batch,
     sharded_forward,
 )
+from .tensor_parallel import split_model_
 
 __all__ = [
     "init_distributed",
@@ -21,4 +22,5 @@ __all__ = [
     "replicate",
     "shard_batch",
     "sharded_forward",
+    "split_model_",
 ]

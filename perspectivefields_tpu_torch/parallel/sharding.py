@@ -6,19 +6,16 @@ Port of perspectivefields_tpu/parallel/sharding.py.
   own rows of the global batch (``shard_batch``) and holds a replica of
   the parameters (``replicate``). Training all-reduces the gradients over
   the data group (``train.train_step``).
-* **Tensor parallel (the "model" axis).** The big matrices are stored as
-  DTensors sharded Megatron-style, GSPMD's parameter annotations in
-  PyTorch: attention q / kv and MixFFN fc1, the decoder's per-scale embeds
-  and ConvNeXt's pwconv1 split by output features, attention proj, fc2 and
-  pwconv2 by input features. A flax kernel is (in, out) and a torch
+* **Tensor parallel (the "model" axis).** The big matrices are split
+  Megatron-style, GSPMD's parameter annotations in PyTorch: attention q / kv
+  and MixFFN fc1, the decoder's per-scale embeds and ConvNeXt's pwconv1 by
+  output features, attention proj, fc2 and pwconv2 by input features
+  (``param_shardings``). A flax kernel is (in, out) and a torch
   ``Linear.weight`` is (out, in), so JAX's P(None, "model") is Shard(0) here
-  and P("model", None) is Shard(1). The output of a column-split layer is
-  gathered (redistributed to Replicate) as it leaves the layer, as GSPMD
-  all-gathers before an op that cannot run sharded: kv's output is laid
-  out [k | v], so a split of it would hand one rank all of k, and MixFFN's
-  depthwise conv sits on fc1's output. A row-split layer then reads its
-  own slice of the replicated input and its partial sums are reduced.
-  Everything else runs replicated.
+  and P("model", None) is Shard(1). ``tensor_parallel`` holds the split
+  Linears and their collectives; training (``train.create_train_state``)
+  and the inference forward (``sharded_forward``) run on them. Everything
+  else runs replicated.
 """
 
 from __future__ import annotations
@@ -29,7 +26,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import Placement, Replicate, Shard
 
 
 def _groups(mesh: DeviceMesh) -> list:
@@ -112,49 +109,39 @@ def _spec_for(name: str, shape, n_model: int) -> Placement:
 
 
 def param_shardings(mesh: DeviceMesh, model: nn.Module) -> dict[str, Placement]:
-    """Each parameter's placement on the mesh's "model" axis."""
+    """Each parameter's placement on the mesh's "model" axis (a split
+    model's shards give their own)."""
     n_model = mesh["model"].size() if "model" in mesh.mesh_dim_names else 1
-    return {name: _spec_for(name, p.shape, n_model) for name, p in model.named_parameters()}
-
-
-def _gather_output(module, args, out):
-    return out.redistribute(out.device_mesh, [Replicate()])
+    out = {}
+    for name, p in model.named_parameters():
+        shard = getattr(p, "model_shard", None)  # tensor_parallel.model_shard
+        out[name] = Shard(shard.dim) if shard is not None else _spec_for(name, p.shape, n_model)
+    return out
 
 
 def sharded_forward(model: nn.Module, mesh: DeviceMesh):
     """A tensor-parallel inference forward of a PersNet over the mesh.
 
     Returns (fn, sharded_model). ``sharded_model`` is a copy of ``model``
-    built with every kernel off (a DTensor cannot enter a kernel's launch)
-    whose parameters are DTensors on the "model" axis, laid out by
-    ``param_shardings``. ``fn(images)`` runs this rank's rows of the global
-    batch (``shard_batch(mesh, images)``, normalized NHWC) and returns plain
+    built with every kernel off (a kernel takes whole weights) whose ruled
+    Linears are split over the "model" axis by ``param_shardings``
+    (``tensor_parallel.split_model_``, the layer training splits with).
+    ``fn(images)`` runs this rank's rows of the global batch
+    (``shard_batch(mesh, images)``, normalized NHWC) and returns plain
     tensors for those rows; ranks that share a data index return the same
-    values (``all_gather_batch`` puts the global batch back together)."""
+    values (``all_gather_batch`` puts the global batch back together).
+    Every rank of the mesh calls it: reading a split ``model``'s state
+    dict is a collective."""
     from ..models import PersNet
+    from .tensor_parallel import split_model_
 
-    model_mesh = mesh["model"]
-    placements = param_shardings(mesh, model)
     sharded = PersNet(model.cfg).to(next(model.parameters()).device)
     sharded.load_state_dict(model.state_dict())
+    split_model_(sharded, mesh)
     sharded.eval().requires_grad_(False)
-    for name, p in list(sharded.named_parameters()):
-        owner, leaf = name.rsplit(".", 1)
-        dt = distribute_tensor(p.detach(), model_mesh, [placements[name]])
-        setattr(sharded.get_submodule(owner), leaf, nn.Parameter(dt, requires_grad=False))
-    for mod in sharded.modules():
-        if isinstance(mod, nn.Linear) and mod.weight.placements[0] == Shard(0):
-            mod.register_forward_hook(_gather_output)
 
     @torch.no_grad()
     def fn(images: torch.Tensor) -> dict[str, torch.Tensor]:
-        from torch.distributed.tensor.experimental import implicit_replication
-
-        x = DTensor.from_local(images, model_mesh, [Replicate()], run_check=False)
-        # plain constants made inside the forward (phase matrices, ones
-        # maps) join the DTensors as replicated
-        with implicit_replication():
-            out = sharded(x)
-        return {k: v.full_tensor() if isinstance(v, DTensor) else v for k, v in out.items()}
+        return sharded(images)
 
     return fn, sharded

@@ -11,7 +11,7 @@ Prints one JSON line and, unless ``--smoke``, writes it to
 docs/artifacts/learning_proof_torch.json with the card's name and power
 limit.
 
-    python -m perspectivefields_tpu_torch.tools.learning_proof
+    python -m perspectivefields_tpu_torch.tools.learning_proof --commit "$(git rev-parse HEAD)"
     python -m perspectivefields_tpu_torch.tools.learning_proof --steps 40 --chunk 20 \\
         --batch 4 --smoke --device cpu
 """
@@ -91,6 +91,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--smoke", action="store_true",
                     help="plumbing smoke: no artifact, no improvement assertions")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--commit", default=None,
+                    help="the commit (and any change on top of it) the run is made at, recorded "
+                         "in the artifact (a copy of the tree without .git cannot name it)")
     args = ap.parse_args(argv)
 
     from ..data import data_iterator, make_step_batch_fn
@@ -147,6 +150,7 @@ def main(argv=None) -> dict:
         "loss_last": losses[-1] if losses else None,
         "backend": f"torch {torch.__version__}, {device.type}",
         "card": card_name(device),
+        "commit": args.commit,
     }
     print(json.dumps(result), flush=True)
     if not args.smoke:

@@ -9,11 +9,14 @@ loader that yields the same batch dict.
     python -m perspectivefields_tpu_torch.tools.train --steps 2 --batch 2 --size 64 --tiny --device cpu
     torchrun --nproc_per_node=N -m perspectivefields_tpu_torch.tools.train --steps 200 --batch 32
 
-Under torchrun the ranks form one data-parallel mesh (``parallel.make_mesh``,
-as JAX's trainer lays every device on "data"): ``--batch`` is the global
-batch and each rank renders and trains on its own rows of it; the step is
-the one-process step on the whole batch. Rank 0 logs and writes the
-checkpoints and ``--out``, the others wait at a barrier; every rank
+Under torchrun the ranks form one (data, model) mesh (``parallel.make_mesh``;
+by default every rank on "data", as JAX's trainer lays every device):
+``--batch`` is the global batch and each data index renders and trains on
+its own rows of it; the step is the one-process step on the whole batch.
+``--n-model N`` splits the ruled Linears, and their AdamW state, over N
+ranks (``parallel.tensor_parallel``). Every rank gathers the checkpoints
+and ``--out`` whole (a split state is saved in the one-process format),
+rank 0 logs and writes them, the others wait at a barrier; every rank
 restores. NCCL is the CUDA backend; it refuses two ranks on one GPU, so
 pass ``--backend gloo`` there (and on the CPU).
 
@@ -104,6 +107,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--backend", default=None,
                     help="process-group backend under torchrun: nccl (CUDA default) or gloo")
+    ap.add_argument("--n-model", type=int, default=1,
+                    help="ranks the ruled Linears are split over under torchrun (tensor parallel)")
     args = ap.parse_args(argv)
 
     from ..checkpoint import restore_train_state, save_params, save_train_state
@@ -115,7 +120,7 @@ def main(argv=None):
     mesh = None
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         init_distributed(backend=args.backend or ("nccl" if device.type == "cuda" else "gloo"))
-        mesh = make_mesh(device_type=device.type)
+        mesh = make_mesh(n_model=args.n_model, device_type=device.type)
     main_rank = mesh is None or dist.get_rank() == 0
 
     def log(msg):
@@ -161,8 +166,7 @@ def main(argv=None):
     def maybe_ckpt(prev_step, now_step):
         # whenever a multiple of --ckpt-every falls in (prev_step, now_step]
         if args.ckpt_dir and now_step // args.ckpt_every > prev_step // args.ckpt_every:
-            if main_rank:
-                save_train_state(state, args.ckpt_dir)
+            save_train_state(state, args.ckpt_dir, write=main_rank)
             log(f"checkpointed step {now_step} -> {args.ckpt_dir}")
             sync()
 
@@ -204,8 +208,9 @@ def main(argv=None):
             maybe_ckpt(i, i + 1)
 
     if args.out:
+        params = state.model.state_dict()  # whole tensors: a collective when split
         if main_rank:
-            save_params(state.model, args.out)
+            save_params(params, args.out)
         log(f"saved {args.out}")
         sync()
     return state

@@ -6,6 +6,7 @@ functions, and a PyTorch training loop on one device.
 
 from .losses import (
     cross_entropy_loss,
+    global_denominators,
     gravity_regression_loss,
     latitude_regression_loss,
     meanstd_tanh_norm_loss,
@@ -28,6 +29,7 @@ __all__ = [
     "gravity_regression_loss",
     "latitude_regression_loss",
     "cross_entropy_loss",
+    "global_denominators",
     "param_loss",
     "total_loss",
     "TrainState",

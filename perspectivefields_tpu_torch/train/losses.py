@@ -20,13 +20,15 @@ reference's training losses:
 Masking is by weighted sums, without data-dependent branches, as in JAX.
 
 Data parallelism: every mean here is over the whole batch. ``reduce``
-(None on one process) sums a denominator over the data-parallel ranks, so
-that with each rank's rows the rank's loss is its share of the global
-batch's loss: the ranks' losses, and their gradients, sum to the
+(None on one process) gives a denominator summed over the data-parallel
+ranks, so that with each rank's rows the rank's loss is its share of the
+global batch's loss: the ranks' losses, and their gradients, sum to the
 one-process values whatever each rank's mask counts are. The denominators
-carry no gradient. Each is its own all-reduce (twelve a step for the
-trainer's config: four msgil scales a field head, the two l2 terms, the
-overflow penalty, ParamNet's MSE), issued before the train step's one
+carry no gradient and depend only on the batch's masks and shapes, so
+``global_denominators`` records every local count first (twelve a step for
+the trainer's config: four msgil scales a field head, the two l2 terms, the
+overflow penalty, ParamNet's MSE), sums them all in one call and hands them
+back in order: one all-reduce a step, before the train step's one
 all-reduce of the gradients.
 """
 
@@ -41,6 +43,27 @@ from ..config import PARAM_FACTORS
 _EPS = 1e-8
 
 Reduce = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def global_denominators(loss_fn: Callable, outputs: dict, batch: dict, cfg,
+                        sum_counts: Callable[[list], list]) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The ``reduce`` for ``loss_fn(outputs, batch, cfg, reduce)`` whose
+    denominators are summed by one call of ``sum_counts`` (a list of local
+    counts -> their sums over the ranks, one all-reduce). A first pass of
+    ``loss_fn`` without gradient records the local counts in the order it
+    asks for them; the returned ``reduce`` hands out their sums in that
+    order. The counts are whole numbers in float32, so the sums, and the
+    losses, are the ones a separate all-reduce per count gives."""
+    counts: list = []
+
+    def record(count: torch.Tensor) -> torch.Tensor:
+        counts.append(count)
+        return count
+
+    with torch.no_grad():
+        loss_fn(outputs, batch, cfg, record)
+    totals = iter(sum_counts(counts))
+    return lambda count: next(totals)
 
 
 def _total(count: torch.Tensor, reduce: Reduce) -> torch.Tensor:

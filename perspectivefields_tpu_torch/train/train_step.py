@@ -27,12 +27,17 @@ their metrics stacked.
 With a (data, model) ``mesh`` (``parallel.make_mesh``) each rank steps on
 its own rows of the global batch (``parallel.batch_rows``) and the step is
 the one-process step on the whole batch, as JAX's GSPMD step is: the
-losses' denominators are summed over the data group (``losses``), so the
-ranks' gradients sum to the global loss's; one all-reduce sums them, and
-the clip and the AdamW update then run on the same gradient on every rank;
-the stochastic-depth masks are the global batch's rows. Ranks that share
-a data index (a model axis > 1) compute the same step: the tensor-parallel
-layout is the inference forward's (``parallel.sharded_forward``).
+losses' denominators are summed over the data group in one all-reduce
+(``losses.global_denominators``), so the ranks' gradients sum to the
+global loss's; one all-reduce over the data group sums them, and the clip
+and the AdamW update then run on the same gradient on every rank of it;
+the stochastic-depth masks are the global batch's rows. A model axis > 1
+splits the ruled Linears over it (``parallel.tensor_parallel``, the layout
+of ``parallel.param_shardings``): each rank holds, steps and keeps AdamW
+state for its shards only, as GSPMD's optax state is split; the rest of
+the model, its gradients and its state are replicated, bit-equal across
+the model group; the clip's norm sums the shards' squares over the model
+group.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Callable, Optional, Union
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -48,7 +53,8 @@ from torch import nn
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from ..data import seeded_generator
-from .losses import total_loss
+from ..parallel.tensor_parallel import model_shard, unsplit_ruled
+from .losses import global_denominators, total_loss
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -78,11 +84,17 @@ def create_train_state(
     mostly invalid fields, and in JAX an unclipped spike turned a healthy
     run to NaN (JAX create_train_state).
     mesh: every rank's parameters become the mesh's first rank's
-    (``parallel.replicate``), so the ranks start as one."""
+    (``parallel.replicate``), so the ranks start as one; on a model axis > 1
+    the ruled Linears are then split over it, in place
+    (``parallel.tensor_parallel.split_model_``), before AdamW is built, so
+    the optimizer holds this rank's shards only. The split raises where the
+    model cannot be split (a kernel route on)."""
     if mesh is not None:
         from ..parallel import replicate
+        from ..parallel.tensor_parallel import split_model_
 
         replicate(mesh, model)
+        split_model_(model, mesh)
     lr0 = learning_rate(0) if callable(learning_rate) else learning_rate
     opt = torch.optim.AdamW(
         model.parameters(), lr=lr0, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay
@@ -110,11 +122,21 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
     return schedule
 
 
-def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
+                         shard_grads: Sequence[torch.Tensor] = (), group=None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: g <- (g / ||g||) * max_norm for
     every g where the global norm ||g|| >= max_norm, else unchanged, without
-    a host sync. Returns the global norm."""
+    a host sync. Returns the global norm.
+
+    shard_grads: the gradients of parameters split over the model group
+    ``group`` (``parallel.tensor_parallel``); their squared norms are summed
+    over the group, the replicated ``grads``' counted once."""
     norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if shard_grads:
+        shard_sq = torch.stack(torch._foreach_norm(list(shard_grads))).square().sum()
+        dist.all_reduce(shard_sq, group=group)
+        norm = torch.sqrt(norm.square() + shard_sq)
+        grads = list(grads) + list(shard_grads)
     keep = norm < max_norm
     one = torch.ones_like(norm)
     torch._foreach_div_(grads, torch.where(keep, one, norm))
@@ -148,17 +170,28 @@ def _deterministic_cudnn():
 
 
 def _make_step_body(cfg, loss_fn: Callable, compute_dtype: torch.dtype, mesh=None):
-    group = reduce = None
+    group = model_group = None
+    n_model = 1
     if mesh is not None:
         group, n_data, index = _data_group(mesh)
+        if "model" in mesh.mesh_dim_names:
+            n_model = mesh["model"].size()
+            model_group = mesh.get_group("model")
+    checked = set()
 
-        def reduce(count: torch.Tensor) -> torch.Tensor:
-            count = count.clone()
-            dist.all_reduce(count, group=group)
-            return count
+    def sum_counts(counts: list[torch.Tensor]) -> list[torch.Tensor]:
+        _all_reduce_sum(counts, group)
+        return counts
 
     def step(state: TrainState, batch: dict):
         model, opt = state.model, state.optimizer
+        if n_model > 1 and id(model) not in checked:
+            whole = unsplit_ruled(model, n_model)
+            if whole:  # no silent fallback to the replicated layout
+                raise ValueError(f"a model axis of {n_model} splits {len(whole)} tensors this "
+                                 f"model holds whole ({whole[:3]}...): make the state with "
+                                 "create_train_state(model, mesh=mesh)")
+            checked.add(id(model))
         model.train()
         images = batch["image"]
         dev = images.device
@@ -172,7 +205,11 @@ def _make_step_body(cfg, loss_fn: Callable, compute_dtype: torch.dtype, mesh=Non
                                 enabled=compute_dtype == torch.bfloat16):
                 out = model(images, generator=gen, rows=rows)
             out = {k: v.float() if v.is_floating_point() else v for k, v in out.items()}
-            loss, parts = loss_fn(out, batch, cfg) if reduce is None else loss_fn(out, batch, cfg, reduce)
+            if group is None:
+                loss, parts = loss_fn(out, batch, cfg)
+            else:
+                reduce = global_denominators(loss_fn, out, batch, cfg, sum_counts)
+                loss, parts = loss_fn(out, batch, cfg, reduce)
             loss.backward()
         params = [p for g in opt.param_groups for p in g["params"]]
         for p in params:
@@ -183,7 +220,9 @@ def _make_step_body(cfg, loss_fn: Callable, compute_dtype: torch.dtype, mesh=Non
             # each rank's loss is its share of the global batch's loss
             _all_reduce_sum([p.grad for p in params] + metrics, group)
         if state.grad_clip is not None:
-            clip_by_global_norm_([p.grad for p in params], state.grad_clip)
+            split = [model_shard(p) is not None for p in params]
+            clip_by_global_norm_([p.grad for p, s in zip(params, split) if not s], state.grad_clip,
+                                 [p.grad for p, s in zip(params, split) if s], model_group)
         lr = state.learning_rate
         for g in opt.param_groups:
             g["lr"] = lr(state.step) if callable(lr) else lr

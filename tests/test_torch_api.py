@@ -8,6 +8,7 @@ default path, with fuse_ffn + fuse_convnext, and with fuse_block.
 """
 
 import dataclasses
+import importlib
 import os
 import subprocess
 import sys
@@ -352,7 +353,7 @@ def test_kernel_default_and_gate_stay_off_the_cpu(jax_model):
     forced = PerspectiveFields(
         "custom", config=CFG, params=jax_model.params, device="cpu", use_kernels=True
     )
-    from perspectivefields_tpu_torch.kernels import fused_attention as fa
+    fa = importlib.import_module("perspectivefields_tpu_torch.kernels.fused_attention")
 
     before = fa.LAUNCHES
     forced.inference(_images()[0])
@@ -552,6 +553,13 @@ def test_port_runs_without_jax():
         "from perspectivefields_tpu_torch.tools import learning_proof, convert_checkpoint, "
         "export_torch, dryrun_multiprocess, demo\n"
         "from perspectivefields_tpu_torch.utils import draw, visualizer\n"
+        "from perspectivefields_tpu_torch import ResizeTransform, PanoCam, model_zoo\n"
+        "from perspectivefields_tpu_torch.ops import *\n"
+        "from perspectivefields_tpu_torch.utils import *\n"
+        "from perspectivefields_tpu_torch.models import *\n"
+        "from perspectivefields_tpu_torch.kernels import fused_attention\n"
+        "from perspectivefields_tpu_torch.parallel import tensor_parallel\n"
+        "assert ResizeTransform(20, 30).apply_image(np.zeros((40, 50), np.uint8)).shape == (20, 30)\n"
         "cfg = ModelConfig(version='custom', backbone=BackboneConfig(dims=(64, 128, 192, 256), "
         "depths=(1, 1, 1, 1), num_heads=(1, 2, 3, 4)), "
         "gravity=GravityHeadConfig(loss_type='regression', embed_dim=16, fusion_dim=16), "
@@ -595,6 +603,60 @@ def test_port_runs_without_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+_RESIZE_CASES = {
+    "u8": ((37, 53, 3), np.uint8),
+    "u8_2d": ((37, 53), np.uint8),
+    "u8_1ch": ((37, 53, 1), np.uint8),
+    "f32": ((37, 53, 3), np.float32),
+    "f32_2d": ((37, 53), np.float32),
+    "f32_1ch": ((37, 53, 1), np.float32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_RESIZE_CASES))
+@pytest.mark.parametrize("hw", [(20, 30), (80, 64)])
+def test_resize_transform_matches_jax(case, hw):
+    """The port's ResizeTransform against JAX's: uint8 bit-equal (PIL's
+    resize), float within 2e-5 (torch bilinear), each in its own shape."""
+    from perspectivefields_tpu.api import ResizeTransform as JaxResizeTransform
+    from perspectivefields_tpu_torch import ResizeTransform
+
+    shape, dtype = _RESIZE_CASES[case]
+    rng = np.random.default_rng(0)
+    if dtype == np.uint8:
+        img = rng.integers(0, 256, shape, dtype=np.uint8)
+    else:
+        img = rng.normal(size=shape).astype(np.float32)
+    got = ResizeTransform(*hw).apply_image(img)
+    want = np.asarray(JaxResizeTransform(*hw).apply_image(img))
+    assert got.shape == want.shape == hw + shape[2:] and got.dtype == want.dtype
+    if dtype == np.uint8:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+
+
+# the JAX package's flax converters: the port reads released .pth natively
+_FLAX_ONLY = {("checkpoint", "convert_torch_state_dict"), ("checkpoint", "load_torch_checkpoint")}
+
+
+@pytest.mark.parametrize(
+    "sub", ["", "ops", "models", "utils", "kernels", "train", "parallel", "checkpoint"]
+)
+def test_jax_public_names_resolve_in_the_port(sub):
+    """Every name of a JAX package's ``__all__`` resolves in the port's
+    package or module of the same name (the flax converters excepted)."""
+    import importlib
+
+    suffix = "." + sub if sub else ""
+    jax_mod = importlib.import_module("perspectivefields_tpu" + suffix)
+    port = importlib.import_module("perspectivefields_tpu_torch" + suffix)
+    missing = [n for n in jax_mod.__all__ if (sub, n) not in _FLAX_ONLY and not hasattr(port, n)]
+    assert not missing, missing
+    if hasattr(port, "__all__"):
+        assert set(port.__all__) >= set(jax_mod.__all__) - {n for s, n in _FLAX_ONLY if s == sub}
 
 
 def test_jax_stays_on_cpu_here():

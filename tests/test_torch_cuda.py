@@ -18,7 +18,6 @@ from perspectivefields_tpu_torch.config import (
     ParamNetConfig,
 )
 from perspectivefields_tpu_torch.kernels import convnext_block as cb
-from perspectivefields_tpu_torch.kernels import fused_attention as fa
 from perspectivefields_tpu_torch.kernels import fused_block as fb
 from perspectivefields_tpu_torch.kernels import mixffn as mf
 from perspectivefields_tpu_torch.kernels import stage1_attention as s1
@@ -32,6 +31,7 @@ from perspectivefields_tpu_torch.serving import BatchPredictor
 
 # the package exports the function decoder_tail under its module's name
 dt = importlib.import_module("perspectivefields_tpu_torch.kernels.decoder_tail")
+fa = importlib.import_module("perspectivefields_tpu_torch.kernels.fused_attention")
 
 
 @pytest.fixture

@@ -6,6 +6,7 @@ oracle, in float32. The CUDA kernel itself runs only on a card: see
 tests/test_torch_cuda.py and ``python3 chip_smoke.py``.
 """
 
+import importlib
 import os
 import re
 
@@ -19,8 +20,9 @@ from perspectivefields_tpu.kernels.fused_attention import (
     fused_attention as jax_fused_attention,
 )
 from perspectivefields_tpu_torch.kernels import build as build_mod
-from perspectivefields_tpu_torch.kernels import fused_attention as fa
 from perspectivefields_tpu_torch.kernels import roofline
+
+fa = importlib.import_module("perspectivefields_tpu_torch.kernels.fused_attention")
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

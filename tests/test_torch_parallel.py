@@ -13,6 +13,14 @@
   against the one-process forward within 1e-5 * max(1, |ref|), and the
   port's ``tools.dryrun_multiprocess`` (4 processes, data=2, model=2)
   against its one-process control within JAX's 1e-4 relative;
+* tensor-parallel training: two gloo processes (data=1, model=2), the
+  ruled Linears split, 2 steps against the one-process step (losses 1e-5
+  relative, whole parameters within 0.1 * lr * steps, Adam's first moments
+  within 1e-6, the replicated parameters bit-equal across the model group,
+  AdamW state of the size ``param_shardings`` implies), and train-state
+  checkpoints moved between the split state and one process either way;
+  in one process, the split Linears' names, shapes and slices against
+  ``param_shardings``, the refusals, and the losses' one all-reduce a step;
 * ``PerspectiveFields``' split over replicas (``forward_split``) and
   ``BatchPredictor(mesh=...)`` with two CPU replicas and a batch the
   replicas do not divide: bit-equal to the single-device path on each
@@ -52,9 +60,15 @@ from perspectivefields_tpu_torch.parallel import (
     shard_batch,
 )
 from perspectivefields_tpu_torch.parallel.sharding import _spec_for
+from perspectivefields_tpu_torch.parallel.tensor_parallel import (
+    ColumnLinear,
+    RowLinear,
+    split_linears_,
+    unsplit_ruled,
+)
 from perspectivefields_tpu_torch.serving import BatchPredictor
 from perspectivefields_tpu_torch.tools import dryrun_multiprocess as dryrun
-from perspectivefields_tpu_torch.train import losses
+from perspectivefields_tpu_torch.train import create_train_state, losses, make_train_step
 
 TIMEOUT = 240  # seconds for one multi-process run
 
@@ -240,6 +254,131 @@ def test_dryrun_multiprocess_matches_control(tmp_path):
     ref = art["solo"]["inference_abs_checksum"]
     for r in art["multiprocess"]:
         assert abs(r["inference_abs_checksum"] - ref) <= 1e-4 * max(1.0, abs(ref))
+
+
+def test_tensor_parallel_step_matches_one_process(tmp_path):
+    """data=1 x model=2 over two processes, the ruled Linears split, 2 steps
+    against the one-process step; then each layout restores the other's
+    step-1 checkpoint and takes step 2 as the uninterrupted run does."""
+    steps, ckpt = 2, tmp_path / "ckpt"
+    solo = dryrun.run("solo", "", 0, 1, 1, steps, "cpu", str(tmp_path), ckpt_dir=str(ckpt))
+    results = dryrun.launch(2, 2, steps, out_dir=str(tmp_path), timeout=TIMEOUT,
+                            ckpt_dir=str(ckpt), resume=str(ckpt / "solo"))
+    for r in results:
+        assert r["mesh"] == {"data": 1, "model": 2}
+        np.testing.assert_allclose(r["train_losses"], solo["train_losses"], rtol=1e-5)
+        assert r["replicated_bit_equal"] is True
+        assert r["adam_elements"] == r["expected_adam_elements"] < solo["adam_elements"]
+        # a split state from the one-process checkpoint
+        np.testing.assert_allclose(r["resumed_loss"], solo["train_losses"][1], rtol=1e-5)
+    diffs = dryrun.compare(str(tmp_path))
+    assert diffs["max_param_diff"] <= 0.1 * dryrun.LR * steps, diffs
+    assert diffs["max_moment_diff"] <= 1e-6, diffs
+    # one process from the split state's checkpoint, which is in the
+    # one-process format: the same names and whole shapes
+    again = dryrun.run("solo", "", 0, 1, 1, 0, "cpu", None, resume=str(ckpt / "mp"))
+    np.testing.assert_allclose(again["resumed_loss"], solo["train_losses"][1], rtol=1e-5)
+    a, b = (torch.load(ckpt / role / "step_00000001" / "state.pt", weights_only=True)
+            for role in ("solo", "mp"))
+    assert {k: v.shape for k, v in a["model"].items()} == {k: v.shape for k, v in b["model"].items()}
+    assert {i: {k: v.shape for k, v in st.items()} for i, st in a["optimizer"]["state"].items()} == \
+        {i: {k: v.shape for k, v in st.items()} for i, st in b["optimizer"]["state"].items()}
+
+
+@pytest.mark.parametrize("n_model", [2, 3])
+def test_split_linears_follow_param_shardings(n_model):
+    """One process, every slice of a model axis of n_model: each Linear a
+    rule splits becomes a ColumnLinear (Shard(0)) or RowLinear (Shard(1))
+    holding that rank's slice under the same names; every other parameter
+    stays as it was (n_model 3 leaves odd widths whole, JAX's fallback)."""
+    cfg, _ = dryrun.toy_setup()
+    whole = dryrun.toy_model(cfg)
+    params = dict(whole.named_parameters())
+    for rank in range(n_model):
+        split = split_linears_(dryrun.toy_model(cfg), n_model, rank)
+        assert unsplit_ruled(split, n_model) == []
+        got = dict(split.named_parameters())
+        assert list(got) == list(params)
+        kinds = set()
+        for name, p in params.items():
+            placement = _spec_for(name, p.shape, n_model)
+            owner = split.get_submodule(name.rsplit(".", 1)[0])
+            if placement.is_replicate():
+                assert torch.equal(got[name], p), name
+                if name.endswith(".weight"):
+                    assert type(owner) is not ColumnLinear and type(owner) is not RowLinear, name
+                continue
+            per = p.shape[placement.dim] // n_model
+            want = p.detach().narrow(placement.dim, rank * per, per)
+            assert torch.equal(got[name], want), name
+            assert isinstance(owner, ColumnLinear if placement.dim == 0 else RowLinear), name
+            if name.endswith(".weight"):  # the whole layer's widths
+                assert (owner.out_features, owner.in_features) == tuple(p.shape), name
+            kinds.add(type(owner))
+        assert kinds == {ColumnLinear, RowLinear}
+    assert unsplit_ruled(whole, n_model)  # the unsplit model holds ruled tensors whole
+
+
+def test_tensor_parallel_refusals():
+    """A model with a kernel route on does not split; a step on a model axis
+    of 2 refuses a state whose model was not split."""
+    cfg, batch = dryrun.toy_setup()
+    with pytest.raises(ValueError, match="every kernel off"):
+        split_linears_(PersNet(cfg, fuse_ffn=True), 2, 0)
+
+    class ModelAxisMesh:  # what the step reads of a (data=1, model=2) mesh
+        mesh_dim_names = ("data", "model")
+
+        def __getitem__(self, axis):
+            return type("Axis", (), {"size": lambda _: {"data": 1, "model": 2}[axis]})()
+
+        def get_group(self, axis):
+            return None
+
+        def get_local_rank(self, axis):
+            return 0
+
+    state = create_train_state(dryrun.toy_model(cfg))
+    step = make_train_step(cfg, mesh=ModelAxisMesh())
+    with pytest.raises(ValueError, match="create_train_state"):
+        step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+
+
+def test_losses_take_one_all_reduce_a_step(tmp_path, monkeypatch):
+    """Under a mesh the losses' twelve denominators are summed in one
+    all-reduce (the step's other one sums the gradients); with the counts
+    summed over one rank the losses are bit-equal to the one-process ones."""
+    cfg, batch = dryrun.toy_setup()
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    model = dryrun.toy_model(cfg).train()
+    with torch.no_grad():
+        out = model(tb["image"], generator=torch.Generator().manual_seed(0))
+    whole, parts = losses.total_loss(out, tb, cfg)
+    calls = []
+
+    def sum_counts(counts):
+        calls.append(len(counts))
+        return counts
+
+    reduce = losses.global_denominators(losses.total_loss, out, tb, cfg, sum_counts)
+    got, got_parts = losses.total_loss(out, tb, cfg, reduce)
+    assert calls == [12]
+    assert torch.equal(got, whole) and all(torch.equal(got_parts[k], v) for k, v in parts.items())
+
+    init_distributed("file://" + str(tmp_path / "store"), 1, 0, backend="gloo")
+    try:
+        mesh = make_mesh()
+        state = create_train_state(model, learning_rate=dryrun.LR, mesh=mesh)
+        step = make_train_step(cfg, mesh=mesh)
+        reduces = []
+        real = dist.all_reduce
+        monkeypatch.setattr(dist, "all_reduce", lambda t, **kw: reduces.append(t.numel()) or real(t, **kw))
+        for _ in range(2):
+            step(state, tb)
+        n_params = sum(p.numel() for p in model.parameters())
+        assert reduces == [12, n_params + 1 + 6] * 2  # counts; gradients, loss and its 6 parts
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
