@@ -1,0 +1,7 @@
+"""Mean forward time of a call in the window, from the synchronized wrap, ms."""
+
+from h100bench.readers import span_mean_ms
+
+
+def read(ctx):
+    return span_mean_ms(ctx, "forward")
