@@ -40,6 +40,7 @@ from .models import PersNet
 from .models.common import init_random_
 from .ops.image import make_resize, resize_bilinear
 from .ops.postprocess import postprocess_gravity, postprocess_latitude
+from .utils.profiling import trace
 
 _WEIGHTS_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -127,16 +128,17 @@ def copy_to_host(tensors: Mapping) -> tuple[dict, torch.cuda.Event | None]:
     returned as they are). Read the host tensors only after
     ``event.synchronize()``. Each copy is fresh storage that lives as long as
     a view of it does, so results handed out never share a buffer with a
-    later call's."""
-    if all(t.device.type == "cpu" for t in tensors.values()):
-        return dict(tensors), None
-    host = {}
-    for key, t in tensors.items():
-        host[key] = host_buffer(t.shape, t.dtype, t.device)
-        host[key].copy_(t, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return host, event
+    later call's. The span ``pf.copy_out``."""
+    with trace("pf.copy_out"):
+        if all(t.device.type == "cpu" for t in tensors.values()):
+            return dict(tensors), None
+        host = {}
+        for key, t in tensors.items():
+            host[key] = host_buffer(t.shape, t.dtype, t.device)
+            host[key].copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
 
 
 def _load_file(model: PersNet, path: str) -> None:
@@ -313,13 +315,15 @@ class PerspectiveFields:
     def _network(self, model: PersNet, images: torch.Tensor, device: torch.device,
                  prenormalized: bool) -> dict[str, torch.Tensor]:
         """``model`` on ``images`` moved to ``device`` (asynchronously from
-        pinned memory), normalized there unless ``prenormalized``."""
-        x = images.to(device, non_blocking=True)
-        if not prenormalized:
-            mean, std = (self._mean, self._std) if device == self.device else (
-                self._mean.to(device), self._std.to(device))
-            x = (x.to(torch.float32) - mean) / std
-        return model(x.to(self.dtype))
+        pinned memory), normalized there unless ``prenormalized``. The span
+        ``pf.forward``."""
+        with trace("pf.forward"):
+            x = images.to(device, non_blocking=True)
+            if not prenormalized:
+                mean, std = (self._mean, self._std) if device == self.device else (
+                    self._mean.to(device), self._std.to(device))
+                x = (x.to(torch.float32) - mean) / std
+            return model(x.to(self.dtype))
 
     @torch.inference_mode()
     def _forward_fn(self, images: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -425,93 +429,104 @@ class PerspectiveFields:
         (``np.array(a)``), or stream through ``serving.BatchPredictor``,
         which hands out pageable arrays. Handing out the pinned blocks
         spares each call the page faults of fresh pageable memory."""
-        first = img_bgr_list[0]
-        n = len(img_bgr_list)
-        h, w = self.cfg.resize
-        uniform_u8 = all(
-            img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3
-            and img.shape == first.shape
-            for img in img_bgr_list
-        )
-        flip = self.input_format == "RGB"
-        if self.device_preprocess and uniform_u8:
-            buf = host_buffer((n, *first.shape), torch.uint8, self.device)
-            np.stack([img[:, :, ::-1] if flip else img for img in img_bgr_list], out=buf.numpy())
-            x = buf.to(self.device, non_blocking=True)
-            raw = self._forward_fn(self._device_resize(*first.shape[:2])(x))
-        elif uniform_u8:
-            # native fused resize + normalize, gathered from the frames
-            # straight into the pinned buffer
-            buf = host_buffer((n, h, w, 3), torch.float32, self.device)
-            native.preprocess_list(
-                img_bgr_list, h, w, self._pixel_mean, self._pixel_std, bgr_flip=flip,
-                out=buf.numpy(),
+        with trace("pf.call"):
+            first = img_bgr_list[0]
+            n = len(img_bgr_list)
+            h, w = self.cfg.resize
+            uniform_u8 = all(
+                img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3
+                and img.shape == first.shape
+                for img in img_bgr_list
             )
-            raw = self._forward_prenormalized_fn(buf)
-        else:
-            buf = host_buffer((n, h, w, 3), torch.float32, self.device)
-            np.stack([self._preprocess_host(img) for img in img_bgr_list], out=buf.numpy())
-            raw = self._forward_fn(buf)
-        return self._package_results(raw, [img.shape[:2] for img in img_bgr_list], channels_first)
+            flip = self.input_format == "RGB"
+            if self.device_preprocess and uniform_u8:
+                with trace("pf.preprocess"):
+                    buf = host_buffer((n, *first.shape), torch.uint8, self.device)
+                    np.stack([img[:, :, ::-1] if flip else img for img in img_bgr_list],
+                             out=buf.numpy())
+                x = buf.to(self.device, non_blocking=True)
+                raw = self._forward_fn(self._device_resize(*first.shape[:2])(x))
+            elif uniform_u8:
+                # native fused resize + normalize, gathered from the frames
+                # straight into the pinned buffer
+                with trace("pf.preprocess"):
+                    buf = host_buffer((n, h, w, 3), torch.float32, self.device)
+                    native.preprocess_list(
+                        img_bgr_list, h, w, self._pixel_mean, self._pixel_std, bgr_flip=flip,
+                        out=buf.numpy(),
+                    )
+                raw = self._forward_prenormalized_fn(buf)
+            else:
+                with trace("pf.preprocess"):
+                    buf = host_buffer((n, h, w, 3), torch.float32, self.device)
+                    np.stack([self._preprocess_host(img) for img in img_bgr_list], out=buf.numpy())
+                raw = self._forward_fn(buf)
+            return self._package_results(raw, [img.shape[:2] for img in img_bgr_list],
+                                         channels_first)
 
     @torch.inference_mode()
     def _package_results(self, raw, sizes, channels_first: bool) -> list[dict]:
         """Issue all device work first (each size group's postprocess, the
         float32 casts), then one asynchronous copy per output into pinned
         memory, wait once, and only then split the batch into per-image
-        numpy views."""
+        numpy views (the spans ``pf.postprocess``, ``pf.copy_out``,
+        ``pf.wait`` and ``pf.unpack``)."""
         cfg = self.cfg
-        by_size: dict[tuple, list[int]] = {}
-        for i, s in enumerate(sizes):
-            by_size.setdefault(tuple(s), []).append(i)
-        dev = {k: v.float() for k, v in raw.items()}
-        post: dict[tuple, dict[str, torch.Tensor]] = {}
-        for (oh, ow), idxs in by_size.items():
-            if len(by_size) == 1:
-                group = dev
-            else:
-                sel = torch.tensor(idxs, device=self.device)
-                group = {k: v[sel] for k, v in dev.items() if k in ("pred_gravity", "pred_latitude")}
-            out = {}
-            if "pred_gravity" in group:
-                out["pred_gravity_original"] = postprocess_gravity(
-                    group["pred_gravity"], cfg.resize, oh, ow,
-                    cfg.gravity.loss_type, cfg.gravity.num_classes,
-                )
-            if "pred_latitude" in group:
-                out["pred_latitude_original"] = postprocess_latitude(
-                    group["pred_latitude"], cfg.resize, oh, ow,
-                    cfg.latitude.loss_type, cfg.latitude.num_classes,
-                )
-            post[(oh, ow)] = out
-        flat = dict(dev)
-        flat.update({(s, k): v for s, out in post.items() for k, v in out.items()})
+        with trace("pf.postprocess"):
+            by_size: dict[tuple, list[int]] = {}
+            for i, s in enumerate(sizes):
+                by_size.setdefault(tuple(s), []).append(i)
+            dev = {k: v.float() for k, v in raw.items()}
+            post: dict[tuple, dict[str, torch.Tensor]] = {}
+            for (oh, ow), idxs in by_size.items():
+                if len(by_size) == 1:
+                    group = dev
+                else:
+                    sel = torch.tensor(idxs, device=self.device)
+                    group = {k: v[sel] for k, v in dev.items()
+                             if k in ("pred_gravity", "pred_latitude")}
+                out = {}
+                if "pred_gravity" in group:
+                    out["pred_gravity_original"] = postprocess_gravity(
+                        group["pred_gravity"], cfg.resize, oh, ow,
+                        cfg.gravity.loss_type, cfg.gravity.num_classes,
+                    )
+                if "pred_latitude" in group:
+                    out["pred_latitude_original"] = postprocess_latitude(
+                        group["pred_latitude"], cfg.resize, oh, ow,
+                        cfg.latitude.loss_type, cfg.latitude.num_classes,
+                    )
+                post[(oh, ow)] = out
+            flat = dict(dev)
+            flat.update({(s, k): v for s, out in post.items() for k, v in out.items()})
         pinned, event = copy_to_host(flat)
-        if event is not None:
-            event.synchronize()
-        host = {k: v.numpy() for k, v in pinned.items()}
+        with trace("pf.wait"):
+            if event is not None:
+                event.synchronize()
+        with trace("pf.unpack"):
+            host = {k: v.numpy() for k, v in pinned.items()}
 
-        results: list[dict] = []
-        for i, s in enumerate(sizes):
-            res: dict = {}
-            for key in ("pred_gravity", "pred_latitude"):
-                if key in host:
-                    res[key] = self._export(host[key][i], channels_first)
-            if self.param_on:
-                for key in dev:
-                    val = host[key]
-                    if key.startswith("pred_") and val.ndim == 1 or key == "pred_rel_pp":
-                        res[key] = np.asarray(val[i])
-            j = by_size[tuple(s)].index(i)
-            if (tuple(s), "pred_gravity_original") in host:
-                res["pred_gravity_original"] = self._export(
-                    host[(tuple(s), "pred_gravity_original")][j], channels_first
-                )
-            if (tuple(s), "pred_latitude_original") in host:
-                res["pred_latitude_original"] = host[(tuple(s), "pred_latitude_original")][j]
-                res["pred_latitude_original_mode"] = "deg"
-            results.append(res)
-        return results
+            results: list[dict] = []
+            for i, s in enumerate(sizes):
+                res: dict = {}
+                for key in ("pred_gravity", "pred_latitude"):
+                    if key in host:
+                        res[key] = self._export(host[key][i], channels_first)
+                if self.param_on:
+                    for key in dev:
+                        val = host[key]
+                        if key.startswith("pred_") and val.ndim == 1 or key == "pred_rel_pp":
+                            res[key] = np.asarray(val[i])
+                j = by_size[tuple(s)].index(i)
+                if (tuple(s), "pred_gravity_original") in host:
+                    res["pred_gravity_original"] = self._export(
+                        host[(tuple(s), "pred_gravity_original")][j], channels_first
+                    )
+                if (tuple(s), "pred_latitude_original") in host:
+                    res["pred_latitude_original"] = host[(tuple(s), "pred_latitude_original")][j]
+                    res["pred_latitude_original_mode"] = "deg"
+                results.append(res)
+            return results
 
     @staticmethod
     def _export(a: np.ndarray, channels_first: bool) -> np.ndarray:

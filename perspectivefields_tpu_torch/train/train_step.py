@@ -54,6 +54,7 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from ..data import seeded_generator
 from ..parallel.tensor_parallel import model_shard, unsplit_ruled
+from ..utils.profiling import trace
 from .losses import global_denominators, total_loss
 
 Schedule = Union[float, Callable[[int], float]]
@@ -184,6 +185,10 @@ def _make_step_body(cfg, loss_fn: Callable, compute_dtype: torch.dtype, mesh=Non
         return counts
 
     def step(state: TrainState, batch: dict):
+        with trace("train.step"):
+            return phases(state, batch)
+
+    def phases(state: TrainState, batch: dict):
         model, opt = state.model, state.optimizer
         if n_model > 1 and id(model) not in checked:
             whole = unsplit_ruled(model, n_model)
@@ -201,32 +206,37 @@ def _make_step_body(cfg, loss_fn: Callable, compute_dtype: torch.dtype, mesh=Non
         gen = seeded_generator(0, state.step, device=dev)
         rows = None if group is None else (index * images.shape[0], n_data * images.shape[0])
         with _deterministic_cudnn():
-            with torch.autocast(dev.type, dtype=torch.bfloat16,
-                                enabled=compute_dtype == torch.bfloat16):
+            with trace("train.forward"), torch.autocast(
+                    dev.type, dtype=torch.bfloat16, enabled=compute_dtype == torch.bfloat16):
                 out = model(images, generator=gen, rows=rows)
-            out = {k: v.float() if v.is_floating_point() else v for k, v in out.items()}
-            if group is None:
-                loss, parts = loss_fn(out, batch, cfg)
-            else:
-                reduce = global_denominators(loss_fn, out, batch, cfg, sum_counts)
-                loss, parts = loss_fn(out, batch, cfg, reduce)
-            loss.backward()
+            with trace("train.loss"):
+                out = {k: v.float() if v.is_floating_point() else v for k, v in out.items()}
+                if group is None:
+                    loss, parts = loss_fn(out, batch, cfg)
+                else:
+                    reduce = global_denominators(loss_fn, out, batch, cfg, sum_counts)
+                    loss, parts = loss_fn(out, batch, cfg, reduce)
+            with trace("train.backward"):
+                loss.backward()
         params = [p for g in opt.param_groups for p in g["params"]]
-        for p in params:
-            if p.grad is None:  # as optax: an unreached parameter has a 0 gradient
-                p.grad = torch.zeros_like(p)
-        metrics = [loss.detach(), *(v.detach() for v in parts.values())]
-        if group is not None:
-            # each rank's loss is its share of the global batch's loss
-            _all_reduce_sum([p.grad for p in params] + metrics, group)
-        if state.grad_clip is not None:
-            split = [model_shard(p) is not None for p in params]
-            clip_by_global_norm_([p.grad for p, s in zip(params, split) if not s], state.grad_clip,
-                                 [p.grad for p, s in zip(params, split) if s], model_group)
-        lr = state.learning_rate
-        for g in opt.param_groups:
-            g["lr"] = lr(state.step) if callable(lr) else lr
-        opt.step()
+        with trace("train.clip"):
+            for p in params:
+                if p.grad is None:  # as optax: an unreached parameter has a 0 gradient
+                    p.grad = torch.zeros_like(p)
+            metrics = [loss.detach(), *(v.detach() for v in parts.values())]
+            if group is not None:
+                # each rank's loss is its share of the global batch's loss
+                _all_reduce_sum([p.grad for p in params] + metrics, group)
+            if state.grad_clip is not None:
+                split = [model_shard(p) is not None for p in params]
+                clip_by_global_norm_([p.grad for p, s in zip(params, split) if not s],
+                                     state.grad_clip,
+                                     [p.grad for p, s in zip(params, split) if s], model_group)
+        with trace("train.optimizer"):
+            lr = state.learning_rate
+            for g in opt.param_groups:
+                g["lr"] = lr(state.step) if callable(lr) else lr
+            opt.step()
         state.step += 1
         return state, dict(zip(["loss", *parts], metrics))
 

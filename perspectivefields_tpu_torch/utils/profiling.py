@@ -2,15 +2,40 @@
 
 Port of perspectivefields_tpu/utils/profiling.py on PyTorch:
 
-* ``trace(name)``: a ``torch.profiler.record_function`` range, plus an NVTX
-  range when a CUDA device is present (both show in a device trace);
+* ``trace(name)``: a span, the port's one span facility. Under an active
+  profiler it is a ``torch.profiler.record_function`` range, which the
+  profiler's Chrome trace holds beside the device's kernels and copies, on
+  the same clock; with no profiler it records nothing (a check of one flag).
+  For Nsight, run under ``torch.autograd.profiler.emit_nvtx()``, which makes
+  every such range an NVTX range;
 * ``profile_to(dir)``: ``torch.profiler`` over the CPU and, when present,
   CUDA around a block, written to ``dir`` as a Chrome trace;
 * ``StageTimer``: host-side wall time per named stage with an items/s
-  summary (serving observability), the same summary format as JAX's;
+  summary (serving observability), the same summary format as JAX's; each
+  stage is also the span ``serving.<stage>``;
 * ``guard_nans(fn)``: runs ``fn`` and raises if any floating tensor it
   returns is not finite (JAX's checkify has no PyTorch counterpart, so the
   check reads the outputs; it waits for the device).
+
+The spans the port opens, each nested in the one before it on its line
+(``pf.*``: ``api``; ``serving.*``: ``serving.BatchPredictor``;
+``train.*``: ``train.train_step``):
+
+* ``pf.call``: one ``inference_batch`` (or ``inference``) call, holding
+  ``pf.preprocess`` (the host resize and normalize into the pinned buffer,
+  or the uint8 stack for ``device_preprocess``);
+* ``pf.forward``: the network on one device (the copy in, the device
+  normalize, the module's call), in every call, every ``BatchPredictor``
+  batch and each replica of ``forward_split``;
+* ``pf.postprocess`` (casts and postprocess issue), ``pf.copy_out`` (the
+  copies to pinned memory and their event), ``pf.wait`` (the host waiting
+  for that event), ``pf.unpack`` (the per-image numpy views);
+* ``serving.preprocess``, ``serving.dispatch`` (holding ``pf.forward`` and
+  ``pf.copy_out``), ``serving.device_wait``, ``serving.decode``;
+* ``train.step``, holding ``train.forward``, ``train.loss``,
+  ``train.backward``, ``train.clip`` (the zero-fill of unreached gradients,
+  any all-reduce, the clip) and ``train.optimizer`` (the learning rate and
+  the optimizer's step).
 """
 
 from __future__ import annotations
@@ -23,19 +48,18 @@ from collections import defaultdict
 import torch
 
 
-@contextlib.contextmanager
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+
 def trace(name: str):
-    """A named range visible in ``torch.profiler`` traces and, on CUDA, in
-    NVTX-reading tools."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+    """A span named ``name``, for a ``with`` block: a ``record_function``
+    range while a profiler is active (``torch.profiler``, or ``emit_nvtx``
+    for NVTX-reading tools), else a context that does nothing. Whether one
+    is active is read at the call."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager
@@ -62,12 +86,14 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str, items: int = 0):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._acc[name] += time.perf_counter() - t0
-            self._count[name] += items
+        """Time the block as ``name``; it is the span ``serving.<name>`` too."""
+        with trace(f"serving.{name}"):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self._acc[name] += time.perf_counter() - t0
+                self._count[name] += items
 
     def summary(self) -> dict[str, dict]:
         out = {}

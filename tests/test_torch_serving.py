@@ -10,6 +10,7 @@ tests/test_serving.py run on the port as well, except the mesh case (the
 port has no mesh).
 """
 
+import json
 import warnings
 
 import numpy as np
@@ -296,3 +297,10 @@ def test_trace_and_profile_to_write_a_chrome_trace(model, tmp_path):
                 model.forward(np.zeros((1, 64, 64, 3), np.uint8))
     assert (tmp_path / "trace.json").stat().st_size > 0
     assert any(e.key == "serving_batch" for e in prof.key_averages())
+    # the forward's own span, inside the caller's, in the written trace
+    keys = {e.key for e in prof.key_averages()}
+    assert "pf.forward" in keys
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    spans = {e["name"]: e for e in events if e.get("cat") == "user_annotation"}
+    outer, inner = spans["serving_batch"], spans["pf.forward"]
+    assert outer["ts"] <= inner["ts"] and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
