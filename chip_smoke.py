@@ -174,7 +174,7 @@ from perspectivefields_tpu_torch.kernels import fused_block as fb
 from perspectivefields_tpu_torch.kernels import mixffn as mf
 from perspectivefields_tpu_torch.kernels import roofline
 from perspectivefields_tpu_torch.kernels import stage1_attention as s1
-from perspectivefields_tpu_torch.models import PersNet
+from perspectivefields_tpu_torch.models import PersNet, graphed
 from perspectivefields_tpu_torch.models.common import init_random_
 from perspectivefields_tpu_torch.models.convnext import ConvNeXtBlock
 from perspectivefields_tpu_torch.models.mit import MixFFN, SRAttention
@@ -216,8 +216,7 @@ BLOCK_STAGES = {3: (20, 320, 5, 18), 4: (10, 512, 8, 3)}
 TAIL_HW = 160
 TAIL_COS = {("flagship", "gravity_head"): 2, ("flagship", "latitude_head"): 1,
             ("cls", "gravity_head"): 73, ("cls", "latitude_head"): 180}
-KERNELS = {"fused_attention": fa, "stage1_attention": s1, "mixffn": mf,
-           "convnext_block": cb, "decoder_tail": dt, "fused_block": fb}
+KERNELS = {mod.__name__.rsplit(".", 1)[1]: mod for mod in kernels.MODULES}
 # Each path's PerspectiveFields flags and its kernels' launches per forward
 PATHS = {
     "default": ({}, {"fused_attention": LAUNCHES_PER_FORWARD}),
@@ -967,18 +966,50 @@ def check_contract(pred: dict, hw, cfg) -> None:
         raise AssertionError(f"latitude out of [-90, 90]: {lat.min()}, {lat.max()}")
 
 
+# Each kernel module's one device kernel a bf16 launch, as the profiler names it
+DEVICE_KERNELS = {"fused_attention": "attn_bf16", "stage1_attention": "stage1_bf16",
+                  "mixffn": "mixffn_bf16", "convnext_block": "convnext_block_bf16",
+                  "decoder_tail": "tail_bf16", "fused_block": "block_bf16"}
+
+
+def device_kernel_counts(prof) -> dict:
+    """How many times each kernel module's bf16 kernel ran on the card in a
+    torch.profiler trace (kernels a CUDA graph replays included)."""
+    by_kernel = {k: name for name, k in DEVICE_KERNELS.items()}
+    counts = dict.fromkeys(KERNELS, 0)
+    for e in prof.key_averages():
+        kernel = re.search(r"(\w+)[<(]", e.key.split("::")[-1])
+        if e.device_time_total > 0 and kernel and kernel.group(1) in by_kernel:
+            counts[by_kernel[kernel.group(1)]] += e.count
+    return counts
+
+
+_captures_at_reset = 0
+
+
 def _reset_counts() -> None:
+    global _captures_at_reset
     for mod in KERNELS.values():
         mod.LAUNCHES = 0
+    _captures_at_reset = graphed.CAPTURES
 
 
 def _expected(path: str, forwards: int = 1) -> dict:
+    """The launches of ``forwards`` forwards on ``path``, and of one more for
+    each CUDA graph captured since the counters were reset: a capture runs
+    the forward once, eager, before it records (``models.graphed``)."""
+    forwards += graphed.CAPTURES - _captures_at_reset
     return {name: PATHS[path][1].get(name, 0) * forwards for name in KERNELS}
 
 
 def slice_phase(sd, path: str) -> dict:
     """Drive one bf16 path (PATHS). Every count is set to 0 just before and
-    read just after."""
+    read just after. The B=8 batches replay the forward's CUDA graph (two
+    calls before the count run it eager and capture it) and the B=1 call
+    runs eager: the kernels' launch counters, which a replay adds to from
+    its capture's record, are held to the kernels the profiler sees run."""
+    from torch.profiler import ProfilerActivity, profile
+
     rng = np.random.default_rng(SEED)
     model = PerspectiveFields(VERSION, params=sd, compute_dtype="bfloat16", device="cuda",
                               **PATHS[path][0])
@@ -987,19 +1018,27 @@ def slice_phase(sd, path: str) -> dict:
     log(f"[slice:{path}] host preprocess backend: {native.backend()}")
     batches = [rng.integers(0, 256, size=(8, 640, 640, 3), dtype=np.uint8) for _ in range(3)]
     single = rng.integers(0, 256, size=(480, 640, 3), dtype=np.uint8)
-    model.inference_batch(list(batches[0]))  # warm-up, before the count
+    for _ in range(2):  # warm-up, before the count: B=8 runs eager, then is captured
+        model.inference_batch(list(batches[0]))
     torch.cuda.synchronize()
 
     _reset_counts()
-    preds = [p for batch in batches for p in model.inference_batch(list(batch))]
-    preds.append(model.inference(single))
-    torch.cuda.synchronize()
+    replays = graphed.REPLAYS
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        preds = [p for batch in batches for p in model.inference_batch(list(batch))]
+        preds.append(model.inference(single))
+        torch.cuda.synchronize()
     launches = {name: mod.LAUNCHES for name, mod in KERNELS.items()}
+    ran = device_kernel_counts(prof)
     forwards = len(batches) + 1
     want = _expected(path, forwards)
-    log(f"[slice:{path}] {len(preds)} images in {forwards} forwards: launches {launches}")
-    if launches != want:
-        raise AssertionError(f"[slice:{path}] want launches {want}, got {launches}")
+    log(f"[slice:{path}] {len(preds)} images in {forwards} forwards "
+        f"({graphed.REPLAYS - replays} replayed): launches {launches}, on the card {ran}")
+    if launches != want or ran != want:
+        raise AssertionError(f"[slice:{path}] want launches {want}, got {launches}, ran {ran}")
+    if graphed.REPLAYS - replays != len(batches):
+        raise AssertionError(f"[slice:{path}] {graphed.REPLAYS - replays} replays, "
+                             f"want {len(batches)}")
     for p in preds[:-1]:
         check_contract(p, (640, 640), model.cfg)
     check_contract(preds[-1], (480, 640), model.cfg)
@@ -1189,7 +1228,8 @@ def throughput_phase(sd, card: str) -> None:
     rates = {k: [] for k in models}
     for name in ("plain", "kernel", "fused", "block", "block", "fused", "kernel", "plain"):
         m = models[name]
-        m.inference_batch(batch)
+        for _ in range(2):  # a model's first window: its forward runs eager, then is captured
+            m.inference_batch(batch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -1200,9 +1240,11 @@ def throughput_phase(sd, card: str) -> None:
         np.stack(batch), 320, 320, models["kernel"]._pixel_mean, models["kernel"]._pixel_std,
     )).to("cuda", torch.bfloat16)
     with torch.inference_mode():
-        fwd = median_ms(lambda: models["kernel"].model(x), reps=5, warmup=1)
+        # two warm-up calls a route: its first sight runs eager, the second
+        # captures its CUDA graph, and the timed calls replay it
+        fwd = median_ms(lambda: models["kernel"].model(x), reps=5, warmup=2)
         set_head_flags(models["kernel"].model, False)
-        plain_heads = median_ms(lambda: models["kernel"].model(x), reps=5, warmup=1)
+        plain_heads = median_ms(lambda: models["kernel"].model(x), reps=5, warmup=2)
         set_head_flags(models["kernel"].model, True)
     log(f"[throughput] kernel path device forward with the heads' plain dataflow: {plain_heads:.1f} ms "
         f"(with JAX's three head rewrites, the default: {fwd:.1f} ms; B=32 bf16, {card})")
@@ -1290,7 +1332,8 @@ def _device_preprocess_check(sd, rng, card: str) -> None:
         f"resize, max |round(x) - exact| = {worst:.0f} LSB (bound 1)")
     if worst > 1.0:
         raise AssertionError("device resize beyond 1 LSB of the host's exact resize")
-    model.inference_batch(batch)  # warm-up, before the count
+    for _ in range(2):  # warm-up, before the count: B=8 runs eager, then is captured
+        model.inference_batch(batch)
     torch.cuda.synchronize()
     _reset_counts()
     t0 = time.perf_counter()
@@ -1568,7 +1611,8 @@ def _entry_points_check(tmp: Path, card: str) -> None:
 def _eval_metrics(model, tag: str, card: str) -> dict:
     it = pdata.data_iterator(SEED + 5, batch_size=TRAIN_BATCH, im_hw=(320, 320), device="cuda")
     batches = [next(it) for _ in range(EVAL_IMAGES // TRAIN_BATCH)]
-    evaluate_pairs(model, batches[:1])  # warm-up
+    for _ in range(2):  # warm-up: the batch's forward runs eager, then is captured
+        evaluate_pairs(model, batches[:1])
     torch.cuda.synchronize()
     _reset_counts()
     t0 = time.perf_counter()
@@ -1595,7 +1639,6 @@ def _evaluation_check(sd, card: str) -> None:
     against bf16 without kernels, f32 with the kernels against f32 without."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    per_forward = PATHS["default"][1]["fused_attention"]
     res = {}
     for dtype in ("bfloat16", "float32"):
         for kernels_on in (True, False):
@@ -1603,7 +1646,8 @@ def _evaluation_check(sd, card: str) -> None:
                                   use_kernels=kernels_on)
             tag = f"{dtype} {'kernel route' if kernels_on else 'no kernels'}"
             res[dtype, kernels_on] = r = _eval_metrics(m, tag, card)
-            want = per_forward * EVAL_IMAGES // TRAIN_BATCH if kernels_on else 0
+            want = (_expected("default", EVAL_IMAGES // TRAIN_BATCH)["fused_attention"]
+                    if kernels_on else 0)
             if r["launches"] != {**{k: 0 for k in KERNELS}, "fused_attention": want}:
                 raise AssertionError(f"[eval] {tag}: launches {r['launches']}, want {want}")
     _compare_metrics("bf16 kernel route vs bf16 without kernels", res["bfloat16", True],

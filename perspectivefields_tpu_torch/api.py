@@ -213,6 +213,16 @@ class PerspectiveFields:
     default, when ``device`` names no index, every local CUDA device where
     there are several, the model's own first; else None (one device, no
     split).
+
+    On a CUDA device the network's forward replays a CUDA graph, one per
+    input signature (the batch's shape and dtype), from the signature's
+    second call on (``models.graphed``): one launch where eager issues
+    ~1,120. The copy in and the device normalize stay eager. Each graph
+    holds the forward's peak of intermediates and its outputs on the
+    device, in one pool a model, at most four signatures; the results are
+    fresh tensors, bit for bit the eager forward's. Calls with a forward
+    hook on a submodule, in training or with grad on run eager. Threads may
+    share one instance: one model's replays take turns under its lock.
     """
 
     def __init__(

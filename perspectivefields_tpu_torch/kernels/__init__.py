@@ -5,10 +5,19 @@ PyTorch version. Sources live in ``perspectivefields_tpu_torch/csrc``.
 JAX package exports them; so ``kernels.fused_attention`` is the function,
 and its module (launch counter, plain version, route) is reached by
 ``importlib.import_module("perspectivefields_tpu_torch.kernels.fused_attention")``
-(likewise ``decoder_tail``).
+(likewise ``decoder_tail``), or in ``MODULES``.
 """
+
+import importlib
 
 from .decoder_tail import decoder_tail
 from .fused_attention import fused_attention
 
-__all__ = ["fused_attention", "decoder_tail"]
+# The six kernel modules, each counting its launches in ``LAUNCHES``
+MODULES = tuple(
+    importlib.import_module(f"{__name__}.{name}")
+    for name in ("fused_attention", "stage1_attention", "mixffn", "convnext_block",
+                 "decoder_tail", "fused_block")
+)
+
+__all__ = ["fused_attention", "decoder_tail", "MODULES"]

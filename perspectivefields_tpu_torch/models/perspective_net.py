@@ -12,6 +12,7 @@ from torch import nn
 
 from ..config import ModelConfig
 
+from . import graphed
 from .heads import LowLevelEncoder, SegFormerDecoder
 from .mit import MixViT
 from .paramnet import ParamNetHead
@@ -61,7 +62,19 @@ class PersNet(nn.Module):
         output, which the overflow penalty reads; ``generator`` draws the
         stochastic-depth masks (None: the global generator); rows = (first,
         total) places ``images`` in a data-parallel global batch, so the
-        masks are that batch's (``mit.DropPath.sample``)."""
+        masks are that batch's (``mit.DropPath.sample``).
+
+        An inference call on the current CUDA device (eval, no grad, no
+        forward hook on a submodule) replays a CUDA graph of this forward,
+        one per input signature (with the values of the route flags such
+        as ``use_kernels`` and the heads' ``fuse_*``), captured on the
+        signature's second call; the outputs are fresh tensors, equal to
+        the eager forward's (``models.graphed``). A signature's graph holds
+        the forward's peak of intermediates and its outputs on the device
+        until it is evicted (at most four a model)."""
+        return graphed.forward(self, self._eager_forward, images, generator, rows)
+
+    def _eager_forward(self, images, generator=None, rows=None):
         cfg = self.cfg
         hl = self.backbone(images, generator, rows)
         ll = self.ll_enc(images)

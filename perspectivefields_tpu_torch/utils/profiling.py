@@ -26,7 +26,9 @@ The spans the port opens, each nested in the one before it on its line
   or the uint8 stack for ``device_preprocess``);
 * ``pf.forward``: the network on one device (the copy in, the device
   normalize, the module's call), in every call, every ``BatchPredictor``
-  batch and each replica of ``forward_split``;
+  batch and each replica of ``forward_split``; it holds ``pf.graph_replay``
+  where the module's forward replays a CUDA graph, or ``pf.graph_capture``
+  where it captures one (``models.graphed``);
 * ``pf.postprocess`` (casts and postprocess issue), ``pf.copy_out`` (the
   copies to pinned memory and their event), ``pf.wait`` (the host waiting
   for that event), ``pf.unpack`` (the per-image numpy views);

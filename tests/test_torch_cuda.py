@@ -3,6 +3,7 @@ an NVIDIA GPU). This file imports no JAX, so it runs on a machine without
 it: ``python -m pytest tests/test_torch_cuda.py --noconftest -q`` (the
 repository's conftest imports JAX)."""
 
+import functools
 import importlib
 
 import numpy as np
@@ -21,7 +22,7 @@ from perspectivefields_tpu_torch.kernels import convnext_block as cb
 from perspectivefields_tpu_torch.kernels import fused_block as fb
 from perspectivefields_tpu_torch.kernels import mixffn as mf
 from perspectivefields_tpu_torch.kernels import stage1_attention as s1
-from perspectivefields_tpu_torch.models import PersNet
+from perspectivefields_tpu_torch.models import PersNet, graphed
 from perspectivefields_tpu_torch.models.common import init_random_
 from perspectivefields_tpu_torch.models.convnext import ConvNeXtBlock
 from perspectivefields_tpu_torch.models.heads import SegFormerDecoder
@@ -757,6 +758,11 @@ def test_pinned_host_memory_is_held_only_by_what_callers_keep(cuda_device):
     streamed = []
     for out_wire in (None, "u8"):
         bp = BatchPredictor(model, batch_size=2, depth=2, out_wire=out_wire)
+        # the first batches run eager and capture the forward's CUDA graph;
+        # at replay speed the host runs up to ``depth`` batches ahead, and a
+        # pinned block freed while later batches are in flight is reused only
+        # once they finish, so the pool reaches its bound in a second stream
+        bp.predict(_serve_images(6, 8))
         streamed += bp.predict(_serve_images(6, 8))
         held = _pinned_bytes()
         streamed += bp.predict(_serve_images(7, 8))
@@ -880,3 +886,258 @@ def test_evaluate_pairs_on_the_card_matches_the_cpu(cuda_device):
     assert res["cuda"]["samples"] == res["cpu"]["samples"] == 9
     for k, v in res["cpu"].items():
         assert res["cuda"][k] == pytest.approx(v, abs=1e-3), k
+
+
+# ------------------------------------------------- the forward's CUDA graphs
+
+_FLAGSHIP = "Paramnet-360Cities-edina-centered"
+
+
+@functools.lru_cache(maxsize=None)
+def _flagship_state(seed: int) -> dict:
+    from perspectivefields_tpu_torch.config import model_zoo
+
+    return init_random_(PersNet(model_zoo[_FLAGSHIP]["config"]), seed=seed).state_dict()
+
+
+def _flagship(dtype, seed=0, **flags):
+    """The flagship PersNet on the card, eval, random weights from ``seed``;
+    bf16 on the attention kernels' route, as ``PerspectiveFields`` builds it."""
+    from perspectivefields_tpu_torch.config import model_zoo
+
+    model = PersNet(model_zoo[_FLAGSHIP]["config"], use_kernels=dtype == torch.bfloat16, **flags)
+    model.load_state_dict(_flagship_state(seed))
+    return model.to("cuda", dtype).eval()
+
+
+def _images(b, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(b, 320, 320, 3, device="cuda", generator=g).to(dtype)
+
+
+def _graph_counts():
+    return graphed.REPLAYS, graphed.CAPTURES, dict(graphed.EAGER)
+
+
+def _assert_equal(got: dict, want: dict):
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b", [1, 32])
+def test_graph_replay_is_bit_identical_to_eager(cuda_device, b, dtype):
+    """The flagship's graph replays give the eager forward's outputs bit for
+    bit, and a result kept from one call is not written by the next."""
+    model = _flagship(dtype)
+    x, y = _images(b, dtype, 0), _images(b, dtype, 1)
+    with torch.inference_mode():
+        want_x, want_y = model._eager_forward(x), model._eager_forward(y)
+        replays, captures, _ = _graph_counts()
+        outs = [model(x) for _ in range(3)]  # eager, captured and replayed, replayed
+        kept = {k: v.clone() for k, v in outs[2].items()}
+        got_y = model(y)
+        torch.cuda.synchronize()
+    assert (graphed.REPLAYS - replays, graphed.CAPTURES - captures) == (3, 1)
+    for out in outs:
+        _assert_equal(out, want_x)
+    _assert_equal(got_y, want_y)
+    _assert_equal(outs[2], kept)
+
+
+@pytest.mark.cuda
+def test_graph_replay_on_the_fused_block_route_is_bit_identical(cuda_device):
+    model = _flagship(torch.bfloat16, fuse_block=True)
+    x = _images(2, torch.bfloat16, 2)
+    before = {name: mod.LAUNCHES for name, mod in (("s1", s1), ("fa", fa), ("fb", fb))}
+    with torch.inference_mode():
+        want = model._eager_forward(x)
+        eager = {name: mod.LAUNCHES - before[name] for name, mod in (("s1", s1), ("fa", fa), ("fb", fb))}
+        outs = [model(x) for _ in range(3)]
+    assert eager == {"s1": 3, "fa": 4, "fb": 21}
+    for out in outs:
+        _assert_equal(out, want)
+
+
+@pytest.mark.cuda
+def test_an_in_place_weight_load_is_read_by_the_next_replay(cuda_device):
+    model = _flagship(torch.bfloat16)
+    x = _images(1, torch.bfloat16, 3)
+    with torch.inference_mode():
+        model(x)
+        old = model(x)
+        replays, captures, _ = _graph_counts()
+        model.load_state_dict(_flagship_state(1))  # copied into the same storage
+        got = model(x)
+        want = model._eager_forward(x)
+    assert (graphed.REPLAYS - replays, graphed.CAPTURES - captures) == (1, 0)
+    _assert_equal(got, want)
+    assert not torch.equal(got["pred_gravity"], old["pred_gravity"])
+
+
+@pytest.mark.cuda
+def test_kernel_launches_count_the_same_under_replay_as_eager(cuda_device):
+    model = _flagship(torch.bfloat16)
+    x = _images(1, torch.bfloat16, 4)
+    kernels = {"fa": fa, "mf": mf, "cb": cb, "fb": fb, "s1": s1, "dt": dt}
+
+    def launched(fn):
+        before = {k: m.LAUNCHES for k, m in kernels.items()}
+        fn()
+        return {k: m.LAUNCHES - before[k] for k, m in kernels.items()}
+
+    with torch.inference_mode():
+        eager = launched(lambda: model._eager_forward(x))
+        model(x)
+        model(x)
+        replays = graphed.REPLAYS
+        replayed = launched(lambda: model(x))
+    assert graphed.REPLAYS == replays + 1
+    assert eager == replayed == {"fa": 25, "mf": 0, "cb": 0, "fb": 0, "s1": 0, "dt": 0}
+
+
+@pytest.mark.cuda
+def test_a_forward_hook_still_fires_because_the_call_runs_eager(cuda_device):
+    model = _flagship(torch.bfloat16)
+    x = _images(1, torch.bfloat16, 5)
+    fired = []
+    with torch.inference_mode():
+        model(x)
+        model(x)  # captured
+        handle = model.backbone.register_forward_hook(lambda *a: fired.append(1))
+        replays, captures, eager = _graph_counts()
+        outs = [model(x) for _ in range(3)]
+        handle.remove()
+        want = model._eager_forward(x)
+    assert len(fired) == 3
+    assert (graphed.REPLAYS, graphed.CAPTURES) == (replays, captures)
+    assert graphed.EAGER["hooks"] - eager.get("hooks", 0) == 3
+    for out in outs:
+        _assert_equal(out, want)
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_stays_eager_and_the_card_keeps_working(cuda_device, monkeypatch):
+    """A submodule that synchronizes cannot be captured: the call warns,
+    answers eager, and the signature stays eager; another signature of the
+    repaired model captures and replays."""
+    model = _flagship(torch.bfloat16)
+    x = _images(1, torch.bfloat16, 6)
+    inner = model.ll_enc.forward
+
+    def synchronizing(*args):
+        torch.cuda.synchronize()
+        return inner(*args)
+
+    monkeypatch.setattr(graphed, "_warned", False)
+    model.ll_enc.forward = synchronizing
+    failures = graphed.CAPTURE_FAILURES
+    with torch.inference_mode():
+        want = model._eager_forward(x)
+        with pytest.warns(RuntimeWarning, match="capture of the forward failed"):
+            outs = [model(x) for _ in range(3)]
+        assert torch.cuda.current_stream() == torch.cuda.default_stream()
+        del model.ll_enc.forward
+        replays = graphed.REPLAYS
+        x2 = _images(2, torch.bfloat16, 7)
+        got2 = [model(x2) for _ in range(3)]
+        want2 = model._eager_forward(x2)
+    assert graphed.CAPTURE_FAILURES == failures + 1
+    assert graphed.REPLAYS == replays + 2
+    for out in outs:
+        _assert_equal(out, want)
+    for out in got2:
+        _assert_equal(out, want2)
+
+
+@pytest.mark.cuda
+def test_a_call_inside_a_callers_capture_runs_eager_into_it(cuda_device):
+    model = _flagship(torch.bfloat16)
+    x = _images(1, torch.bfloat16, 8)
+    with torch.inference_mode():
+        model(x)
+        model(x)
+        want = model._eager_forward(x)
+        g = torch.cuda.CUDAGraph()
+        capturing = graphed.EAGER["capturing"]
+        with torch.cuda.graph(g):
+            out = model(x)
+        g.replay()
+        torch.cuda.synchronize()
+    assert graphed.EAGER["capturing"] == capturing + 1
+    _assert_equal(out, want)
+
+
+@pytest.mark.cuda
+def test_flipping_the_heads_rewrites_captures_their_route_and_flipping_back_replays(cuda_device):
+    """The heads' three rewrites are plain attributes the forward reads: off
+    on a built model, the calls answer the plain dataflow's outputs (eager,
+    then its own graph), not the rewrites' graph; on again, that graph
+    replays without a capture."""
+    model = _flagship(torch.bfloat16)
+    heads = list(model.persformer_heads.values())
+    flags = ("fuse_embed", "fuse_conv0", "fuse_tail")
+    x = _images(1, torch.bfloat16, 9)
+
+    def set_flags(on):
+        for head in heads:
+            for flag in flags:
+                setattr(head, flag, on)
+
+    with torch.inference_mode():
+        want = model._eager_forward(x)
+        model(x)
+        model(x)  # captured with the rewrites on
+        replays, captures, eager = _graph_counts()
+        set_flags(False)
+        want_plain = model._eager_forward(x)
+        plain = [model(x) for _ in range(3)]  # eager, captured and replayed, replayed
+        set_flags(True)
+        back = [model(x) for _ in range(2)]
+        torch.cuda.synchronize()
+    assert (graphed.REPLAYS - replays, graphed.CAPTURES - captures) == (4, 1)
+    assert graphed.EAGER["first_sight"] - eager.get("first_sight", 0) == 1
+    assert not torch.equal(want_plain["pred_gravity"], want["pred_gravity"])  # two routes
+    for out in plain:
+        _assert_equal(out, want_plain)
+    for out in back:
+        _assert_equal(out, want)
+
+
+@pytest.mark.cuda
+def test_two_threads_calling_one_model_each_get_their_own_result(cuda_device):
+    """Two host threads call one model at once, from the first sight of the
+    signature on: each gets its own images' outputs, bit for bit."""
+    import threading
+
+    model = _flagship(torch.bfloat16)
+    xs = [_images(1, torch.bfloat16, 10 + i) for i in range(2)]
+    with torch.inference_mode():
+        wants = [model._eager_forward(x) for x in xs]
+    torch.cuda.synchronize()
+    got, errors = [[], []], []
+    start = threading.Barrier(2)
+
+    def run(i):
+        try:
+            start.wait()
+            with torch.inference_mode():
+                got[i] = [model(xs[i]) for _ in range(12)]
+            torch.cuda.synchronize()
+        except BaseException as exc:  # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    replays, captures, _ = _graph_counts()
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert graphed.CAPTURES - captures == 1 and graphed.REPLAYS - replays >= 20
+    for i in range(2):
+        assert len(got[i]) == 12
+        for out in got[i]:
+            _assert_equal(out, wants[i])
