@@ -30,16 +30,6 @@ from perspectivefields_tpu_torch.tools import train as tool_train
 from perspectivefields_tpu_torch.train import create_train_state, make_train_step
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tier-1 runs six test processes at once on the machine's cores; one
-    torch thread each keeps them from oversubscribing it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 CFG = tool_train.model_config(True, 64)
 
 

@@ -23,16 +23,6 @@ from perspectivefields_tpu import data as jax_data
 from perspectivefields_tpu_torch import data
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tier-1 runs six test processes at once on the machine's cores; one
-    torch thread each keeps them from oversubscribing it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 IMG_TOL, FIELD_TOL = 255 * 1e-4, 1e-5
 HW = (48, 64)
 

@@ -32,16 +32,6 @@ from perspectivefields_tpu_torch.models import PersNet
 from perspectivefields_tpu_torch.models.common import init_random_
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tier-1 runs six test processes at once on the machine's cores; one
-    torch thread each keeps them from oversubscribing it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 METRIC_TOL, PIXEL_TOL = 1e-3, 1e-5
 
 

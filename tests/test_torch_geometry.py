@@ -20,16 +20,6 @@ from perspectivefields_tpu.ops import geometry as JG
 from perspectivefields_tpu_torch.ops import geometry as TG
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tier-1 runs six test processes at once on the machine's cores; one
-    torch thread each keeps them from oversubscribing it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 FIELD_TOL, DEG_TOL = 1e-5, 1e-4
 H, W = 17, 24  # odd x even, so the half-pixel grids are not symmetric
 

@@ -37,23 +37,7 @@ CFG = tc.ModelConfig(
 @pytest.fixture(scope="module")
 def persnet():
     """A tiny PersNet with random weights, built once: tests take a copy."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return init_random_(PersNet(CFG), seed=0).eval()
-    finally:
-        torch.set_num_threads(threads)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """The tensors here are tiny: with one intra-op thread the file stays
-    fast when other test processes share the cores (at eight threads each,
-    their parallel regions wait on one another)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    return init_random_(PersNet(CFG), seed=0).eval()
 
 
 class Tiny(nn.Module):

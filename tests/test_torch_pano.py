@@ -30,16 +30,6 @@ from perspectivefields_tpu_torch.ops import pano as TP
 from tests.test_pano import angle_pano
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tier-1 runs six test processes at once on the machine's cores; one
-    torch thread each keeps them from oversubscribing it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 CROP_TOL = 255 * 1e-4
 FIELD_TOL, ANGLE_TOL, PIX_TOL = 1e-5, 1e-6, 1e-4
 

@@ -73,15 +73,6 @@ from perspectivefields_tpu_torch.train import create_train_state, losses, make_t
 TIMEOUT = 240  # seconds for one multi-process run
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tier-1 runs six test processes at once; one torch thread each."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 # ---------------------------------------------------------------------------
 # tensor-parallel layout vs JAX's rules
 # ---------------------------------------------------------------------------

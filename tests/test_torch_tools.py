@@ -46,15 +46,6 @@ from perspectivefields_tpu_torch.train import warmup_cosine_decay_schedule
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tier-1 runs six test processes at once; one torch thread each."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 # ---------------------------------------------------------------------------
 # the schedule and the learning proof
 # ---------------------------------------------------------------------------

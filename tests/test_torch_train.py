@@ -57,16 +57,6 @@ LOSS_RTOL = 1e-5
 LR = 1e-4
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tier-1 runs six test processes at once on the machine's cores; one
-    torch thread each keeps them from oversubscribing it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def t(a):
     return torch.tensor(np.asarray(a))
 

@@ -10,7 +10,6 @@ Its own file, because its 300 steps take about half a minute.
 """
 
 import numpy as np
-import pytest
 import torch
 
 from perspectivefields_tpu_torch.config import (
@@ -32,16 +31,6 @@ CFG = ModelConfig(
     param=None,
     resize=(64, 64),
 )
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tier-1 runs six test processes at once on the machine's cores; one
-    torch thread each keeps them from oversubscribing it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_single_batch_overfit_learns():
