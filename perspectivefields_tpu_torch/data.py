@@ -31,10 +31,15 @@ from .ops.geometry import linspace, lat_field, up_field
 from .ops.pano import equi2pers
 
 
+def seed_of(seed: int, *words: int) -> int:
+    """The 64-bit seed that ``seeded_generator(seed, *words)`` takes."""
+    state = np.random.SeedSequence([seed, *words]).generate_state(2, np.uint32)
+    return int(state[0]) << 32 | int(state[1])
+
+
 def seeded_generator(seed: int, *words: int, device="cpu") -> torch.Generator:
     """A generator whose state is a pure function of (seed, *words)."""
-    state = np.random.SeedSequence([seed, *words]).generate_state(2, np.uint32)
-    return torch.Generator(device=device).manual_seed(int(state[0]) << 32 | int(state[1]))
+    return torch.Generator(device=device).manual_seed(seed_of(seed, *words))
 
 
 @dataclasses.dataclass(frozen=True)

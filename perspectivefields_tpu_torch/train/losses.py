@@ -34,6 +34,7 @@ all-reduce of the gradients.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -172,6 +173,15 @@ def param_loss(pred: torch.Tensor, target: torch.Tensor, loss_weight: float = 1.
     return _mean((pred - target) ** 2, reduce) * loss_weight
 
 
+@functools.lru_cache(maxsize=None)
+def _param_factors(keys: tuple, device: torch.device) -> torch.Tensor:
+    """The parameters' ``PARAM_FACTORS`` as a float32 tensor on ``device``,
+    made once: a copy from a host list inside the step would wait for the
+    device on every step, and cannot be captured in a CUDA graph."""
+    with torch.inference_mode(False):
+        return torch.tensor([PARAM_FACTORS[k] for k in keys], device=device)
+
+
 def total_loss(outputs: dict, batch: dict, cfg, reduce: Reduce = None) -> tuple[torch.Tensor, dict]:
     """All enabled objectives of a ModelConfig; returns (total, parts) with
     JAX's keys. batch keys (each optional, channels-last): gt_gravity
@@ -203,7 +213,7 @@ def total_loss(outputs: dict, batch: dict, cfg, reduce: Reduce = None) -> tuple[
     if cfg.param_on and "gt_params" in batch:
         keys = cfg.param.predict_params
         pred = torch.stack([outputs["pred_" + k] for k in keys], dim=-1)
-        factors = torch.tensor([PARAM_FACTORS[k] for k in keys], device=pred.device)
+        factors = _param_factors(tuple(keys), pred.device)
         losses["param-loss"] = param_loss(pred / factors, batch["gt_params"], cfg.param.loss_weight,
                                           reduce=reduce)
     total = sum(losses.values())

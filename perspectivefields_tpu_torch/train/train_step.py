@@ -20,6 +20,26 @@ heads' upsampling has a backward without atomic adds
 (``ops.image.up2x_bilinear``), so a seeded run gives the same losses every
 time.
 
+On one CUDA device without a mesh, a step replays as one CUDA graph per
+batch signature (``graphed_step``, whose docstring has the rules): the
+first step of a signature runs eager, the second captures the graph, and
+each later step is one graph launch in place of the forward's and
+backward's kernel launches, most of an eager step's ~8,900. The graph holds
+the zero-grad, the forward under autocast, the losses, the remat backward
+and the clip, and gives the eager step's numbers bit for bit (the same
+dtypes, deterministic cuDNN algorithms and per-step stochastic-depth
+seeds). The AdamW update runs eager after it, on every path, as it is built
+here: a capturable AdamW computes its bias corrections in float32 on the
+card, and its trajectory would then differ by rounding from the float-lr
+one that the CPU and a mesh take. Counters: ``graphed_step.REPLAYS``,
+``CAPTURES``, ``CAPTURE_FAILURES`` and ``EAGER`` by reason (``cpu``,
+``mesh``, ``hooks``, ``first_of_signature``, ``capture_failed``, ...).
+Every step opens the span ``train.step`` and, inside it,
+``train.optimizer``. An eager step also opens ``train.forward``,
+``train.loss``, ``train.backward`` and ``train.clip``; a replay opens
+``train.graph_replay`` in their place, and a capture
+``train.graph_capture`` around the capture's own (host-only) phase spans.
+
 JAX's ``make_train_loop`` runs ``chunk`` steps in one XLA program
 (``lax.scan``); here it is a Python loop of ``chunk`` steps that returns
 their metrics stacked.
@@ -52,9 +72,10 @@ import torch.distributed as dist
 from torch import nn
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
-from ..data import seeded_generator
+from ..data import seed_of
 from ..parallel.tensor_parallel import model_shard, unsplit_ruled
 from ..utils.profiling import trace
+from . import graphed_step
 from .losses import global_denominators, total_loss
 
 Schedule = Union[float, Callable[[int], float]]
@@ -186,24 +207,40 @@ def _make_step_body(cfg, loss_fn: Callable, compute_dtype: torch.dtype, mesh=Non
 
     def step(state: TrainState, batch: dict):
         with trace("train.step"):
-            return phases(state, batch)
+            model = state.model
+            if n_model > 1 and id(model) not in checked:
+                whole = unsplit_ruled(model, n_model)
+                if whole:  # no silent fallback to the replicated layout
+                    raise ValueError(f"a model axis of {n_model} splits {len(whole)} tensors "
+                                     f"this model holds whole ({whole[:3]}...): make the state "
+                                     "with create_train_state(model, mesh=mesh)")
+                checked.add(id(model))
+            model.train()
+            # the stochastic-depth masks differ per step and are reproducible:
+            # (0, step) seeds them, as JAX folds the step into PRNGKey(0)
+            seed = seed_of(0, state.step)
+            if mesh is None:
+                metrics = graphed_step.step(state, batch, phases, seed,
+                                            (cfg, loss_fn, compute_dtype, state.grad_clip))
+            else:  # the collectives stay eager
+                graphed_step.EAGER["mesh"] += 1
+                metrics = phases(state, batch,
+                                 torch.Generator(device=batch["image"].device).manual_seed(seed))
+            with trace("train.optimizer"):
+                lr = state.learning_rate
+                for g in state.optimizer.param_groups:
+                    g["lr"] = lr(state.step) if callable(lr) else lr
+                state.optimizer.step()
+            state.step += 1
+            return state, metrics
 
-    def phases(state: TrainState, batch: dict):
+    def phases(state: TrainState, batch: dict, gen: torch.Generator) -> dict:
+        """The step's work up to the update: zero-grad, forward, losses,
+        backward and clip; the metrics, on the device."""
         model, opt = state.model, state.optimizer
-        if n_model > 1 and id(model) not in checked:
-            whole = unsplit_ruled(model, n_model)
-            if whole:  # no silent fallback to the replicated layout
-                raise ValueError(f"a model axis of {n_model} splits {len(whole)} tensors this "
-                                 f"model holds whole ({whole[:3]}...): make the state with "
-                                 "create_train_state(model, mesh=mesh)")
-            checked.add(id(model))
-        model.train()
         images = batch["image"]
         dev = images.device
         opt.zero_grad(set_to_none=True)
-        # the stochastic-depth masks differ per step and are reproducible:
-        # (0, step) seeds them, as JAX folds the step into PRNGKey(0)
-        gen = seeded_generator(0, state.step, device=dev)
         rows = None if group is None else (index * images.shape[0], n_data * images.shape[0])
         with _deterministic_cudnn():
             with trace("train.forward"), torch.autocast(
@@ -232,13 +269,7 @@ def _make_step_body(cfg, loss_fn: Callable, compute_dtype: torch.dtype, mesh=Non
                 clip_by_global_norm_([p.grad for p, s in zip(params, split) if not s],
                                      state.grad_clip,
                                      [p.grad for p, s in zip(params, split) if s], model_group)
-        with trace("train.optimizer"):
-            lr = state.learning_rate
-            for g in opt.param_groups:
-                g["lr"] = lr(state.step) if callable(lr) else lr
-            opt.step()
-        state.step += 1
-        return state, dict(zip(["loss", *parts], metrics))
+        return dict(zip(["loss", *parts], metrics))
 
     return step
 
