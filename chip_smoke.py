@@ -991,14 +991,14 @@ def _reset_counts() -> None:
     global _captures_at_reset
     for mod in KERNELS.values():
         mod.LAUNCHES = 0
-    _captures_at_reset = graphed.CAPTURES
+    _captures_at_reset = graphed.COUNTS.captures
 
 
 def _expected(path: str, forwards: int = 1) -> dict:
     """The launches of ``forwards`` forwards on ``path``, and of one more for
     each CUDA graph captured since the counters were reset: a capture runs
     the forward once, eager, before it records (``models.graphed``)."""
-    forwards += graphed.CAPTURES - _captures_at_reset
+    forwards += graphed.COUNTS.captures - _captures_at_reset
     return {name: PATHS[path][1].get(name, 0) * forwards for name in KERNELS}
 
 
@@ -1023,7 +1023,7 @@ def slice_phase(sd, path: str) -> dict:
     torch.cuda.synchronize()
 
     _reset_counts()
-    replays = graphed.REPLAYS
+    replays = graphed.COUNTS.replays
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         preds = [p for batch in batches for p in model.inference_batch(list(batch))]
         preds.append(model.inference(single))
@@ -1033,11 +1033,11 @@ def slice_phase(sd, path: str) -> dict:
     forwards = len(batches) + 1
     want = _expected(path, forwards)
     log(f"[slice:{path}] {len(preds)} images in {forwards} forwards "
-        f"({graphed.REPLAYS - replays} replayed): launches {launches}, on the card {ran}")
+        f"({graphed.COUNTS.replays - replays} replayed): launches {launches}, on the card {ran}")
     if launches != want or ran != want:
         raise AssertionError(f"[slice:{path}] want launches {want}, got {launches}, ran {ran}")
-    if graphed.REPLAYS - replays != len(batches):
-        raise AssertionError(f"[slice:{path}] {graphed.REPLAYS - replays} replays, "
+    if graphed.COUNTS.replays - replays != len(batches):
+        raise AssertionError(f"[slice:{path}] {graphed.COUNTS.replays - replays} replays, "
                              f"want {len(batches)}")
     for p in preds[:-1]:
         check_contract(p, (640, 640), model.cfg)

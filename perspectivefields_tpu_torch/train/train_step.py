@@ -31,9 +31,9 @@ dtypes, deterministic cuDNN algorithms and per-step stochastic-depth
 seeds). The AdamW update runs eager after it, on every path, as it is built
 here: a capturable AdamW computes its bias corrections in float32 on the
 card, and its trajectory would then differ by rounding from the float-lr
-one that the CPU and a mesh take. Counters: ``graphed_step.REPLAYS``,
-``CAPTURES``, ``CAPTURE_FAILURES`` and ``EAGER`` by reason (``cpu``,
-``mesh``, ``hooks``, ``first_of_signature``, ``capture_failed``, ...).
+one that the CPU and a mesh take. Counters: ``graphed_step.COUNTS``
+(``replays``, ``captures``, ``capture_failures`` and ``eager`` by reason:
+``cpu``, ``mesh``, ``hooks``, ``first_of_signature``, ``capture_failed``, ...).
 Every step opens the span ``train.step`` and, inside it,
 ``train.optimizer``. An eager step also opens ``train.forward``,
 ``train.loss``, ``train.backward`` and ``train.clip``; a replay opens
@@ -223,7 +223,7 @@ def _make_step_body(cfg, loss_fn: Callable, compute_dtype: torch.dtype, mesh=Non
                 metrics = graphed_step.step(state, batch, phases, seed,
                                             (cfg, loss_fn, compute_dtype, state.grad_clip))
             else:  # the collectives stay eager
-                graphed_step.EAGER["mesh"] += 1
+                graphed_step.COUNTS.eager["mesh"] += 1
                 metrics = phases(state, batch,
                                  torch.Generator(device=batch["image"].device).manual_seed(seed))
             with trace("train.optimizer"):

@@ -1,6 +1,7 @@
 """Host-side utilities of the port: the field drawings (``draw``,
 ``visualizer``; matplotlib and cv2 are imported only by the functions that
-draw) and profiling (``profiling``)."""
+draw), profiling (``profiling``) and the CUDA-graph cache under the
+inference forward and the train step (``cuda_graphs``)."""
 
 from .draw import (
     blend_color,

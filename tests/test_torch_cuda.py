@@ -29,6 +29,7 @@ from perspectivefields_tpu_torch.models.heads import SegFormerDecoder
 from perspectivefields_tpu_torch.models.mit import Block, MixFFN, SRAttention
 from perspectivefields_tpu_torch.ops import image
 from perspectivefields_tpu_torch.serving import BatchPredictor
+from perspectivefields_tpu_torch.utils.cuda_graphs import FIRST
 
 # the package exports the function decoder_tail under its module's name
 dt = importlib.import_module("perspectivefields_tpu_torch.kernels.decoder_tail")
@@ -916,7 +917,7 @@ def _images(b, dtype, seed):
 
 
 def _graph_counts():
-    return graphed.REPLAYS, graphed.CAPTURES, dict(graphed.EAGER)
+    return graphed.COUNTS.replays, graphed.COUNTS.captures, dict(graphed.COUNTS.eager)
 
 
 def _assert_equal(got: dict, want: dict):
@@ -940,7 +941,7 @@ def test_graph_replay_is_bit_identical_to_eager(cuda_device, b, dtype):
         kept = {k: v.clone() for k, v in outs[2].items()}
         got_y = model(y)
         torch.cuda.synchronize()
-    assert (graphed.REPLAYS - replays, graphed.CAPTURES - captures) == (3, 1)
+    assert (graphed.COUNTS.replays - replays, graphed.COUNTS.captures - captures) == (3, 1)
     for out in outs:
         _assert_equal(out, want_x)
     _assert_equal(got_y, want_y)
@@ -972,7 +973,7 @@ def test_an_in_place_weight_load_is_read_by_the_next_replay(cuda_device):
         model.load_state_dict(_flagship_state(1))  # copied into the same storage
         got = model(x)
         want = model._eager_forward(x)
-    assert (graphed.REPLAYS - replays, graphed.CAPTURES - captures) == (1, 0)
+    assert (graphed.COUNTS.replays - replays, graphed.COUNTS.captures - captures) == (1, 0)
     _assert_equal(got, want)
     assert not torch.equal(got["pred_gravity"], old["pred_gravity"])
 
@@ -992,9 +993,9 @@ def test_kernel_launches_count_the_same_under_replay_as_eager(cuda_device):
         eager = launched(lambda: model._eager_forward(x))
         model(x)
         model(x)
-        replays = graphed.REPLAYS
+        replays = graphed.COUNTS.replays
         replayed = launched(lambda: model(x))
-    assert graphed.REPLAYS == replays + 1
+    assert graphed.COUNTS.replays == replays + 1
     assert eager == replayed == {"fa": 25, "mf": 0, "cb": 0, "fb": 0, "s1": 0, "dt": 0}
 
 
@@ -1012,8 +1013,8 @@ def test_a_forward_hook_still_fires_because_the_call_runs_eager(cuda_device):
         handle.remove()
         want = model._eager_forward(x)
     assert len(fired) == 3
-    assert (graphed.REPLAYS, graphed.CAPTURES) == (replays, captures)
-    assert graphed.EAGER["hooks"] - eager.get("hooks", 0) == 3
+    assert (graphed.COUNTS.replays, graphed.COUNTS.captures) == (replays, captures)
+    assert graphed.COUNTS.eager["hooks"] - eager.get("hooks", 0) == 3
     for out in outs:
         _assert_equal(out, want)
 
@@ -1031,21 +1032,21 @@ def test_a_failed_capture_stays_eager_and_the_card_keeps_working(cuda_device, mo
         torch.cuda.synchronize()
         return inner(*args)
 
-    monkeypatch.setattr(graphed, "_warned", False)
+    monkeypatch.setattr(graphed.CACHE, "warned", False)
     model.ll_enc.forward = synchronizing
-    failures = graphed.CAPTURE_FAILURES
+    failures = graphed.COUNTS.capture_failures
     with torch.inference_mode():
         want = model._eager_forward(x)
         with pytest.warns(RuntimeWarning, match="capture of the forward failed"):
             outs = [model(x) for _ in range(3)]
         assert torch.cuda.current_stream() == torch.cuda.default_stream()
         del model.ll_enc.forward
-        replays = graphed.REPLAYS
+        replays = graphed.COUNTS.replays
         x2 = _images(2, torch.bfloat16, 7)
         got2 = [model(x2) for _ in range(3)]
         want2 = model._eager_forward(x2)
-    assert graphed.CAPTURE_FAILURES == failures + 1
-    assert graphed.REPLAYS == replays + 2
+    assert graphed.COUNTS.capture_failures == failures + 1
+    assert graphed.COUNTS.replays == replays + 2
     for out in outs:
         _assert_equal(out, want)
     for out in got2:
@@ -1061,12 +1062,12 @@ def test_a_call_inside_a_callers_capture_runs_eager_into_it(cuda_device):
         model(x)
         want = model._eager_forward(x)
         g = torch.cuda.CUDAGraph()
-        capturing = graphed.EAGER["capturing"]
+        capturing = graphed.COUNTS.eager["capturing"]
         with torch.cuda.graph(g):
             out = model(x)
         g.replay()
         torch.cuda.synchronize()
-    assert graphed.EAGER["capturing"] == capturing + 1
+    assert graphed.COUNTS.eager["capturing"] == capturing + 1
     _assert_equal(out, want)
 
 
@@ -1097,8 +1098,8 @@ def test_flipping_the_heads_rewrites_captures_their_route_and_flipping_back_repl
         set_flags(True)
         back = [model(x) for _ in range(2)]
         torch.cuda.synchronize()
-    assert (graphed.REPLAYS - replays, graphed.CAPTURES - captures) == (4, 1)
-    assert graphed.EAGER["first_sight"] - eager.get("first_sight", 0) == 1
+    assert (graphed.COUNTS.replays - replays, graphed.COUNTS.captures - captures) == (4, 1)
+    assert graphed.COUNTS.eager[FIRST] - eager.get(FIRST, 0) == 1
     assert not torch.equal(want_plain["pred_gravity"], want["pred_gravity"])  # two routes
     for out in plain:
         _assert_equal(out, want_plain)
@@ -1136,7 +1137,7 @@ def test_two_threads_calling_one_model_each_get_their_own_result(cuda_device):
     for t in threads:
         t.join()
     assert not errors, errors
-    assert graphed.CAPTURES - captures == 1 and graphed.REPLAYS - replays >= 20
+    assert graphed.COUNTS.captures - captures == 1 and graphed.COUNTS.replays - replays >= 20
     for i in range(2):
         assert len(got[i]) == 12
         for out in got[i]:

@@ -1,8 +1,9 @@
-"""The CUDA-graph replay of the inference forward (``models.graphed``) on the
-CPU: when a call replays and when it runs eager, the per-model cache of
-graphs and the counters. The device check and the capture are stubbed (a
-"graph" that reruns the eager forward into its static outputs); the real
-capture and replay are tested on the card in tests/test_torch_cuda.py."""
+"""The CUDA-graph replay of the inference forward (``models.graphed``, a
+client of ``utils.cuda_graphs``) on the CPU: when a call replays and when
+it runs eager, the per-model cache of graphs and the counters. The device
+check and the capture primitive are stubbed (``_cuda_graph_stub``: a "graph"
+that reruns the eager forward into its static outputs); the real capture
+and replay are tested on the card in tests/test_torch_cuda.py."""
 
 import ast
 import copy
@@ -10,7 +11,6 @@ import importlib
 import pkgutil
 import re
 import threading
-import time
 
 import pytest
 import torch
@@ -22,6 +22,8 @@ from perspectivefields_tpu_torch import kernels
 from perspectivefields_tpu_torch.kernels import build
 from perspectivefields_tpu_torch.models import PersNet, graphed
 from perspectivefields_tpu_torch.models.common import init_random_
+from perspectivefields_tpu_torch.utils.cuda_graphs import FIRST
+from _cuda_graph_stub import counts, delta, fail_captures, stub
 
 CFG = tc.ModelConfig(
     version="custom",
@@ -57,52 +59,32 @@ class Tiny(nn.Module):
         return {"y": y, "s": s, "s_alias": s}
 
 
-class _FakeCUDAGraph:
-    """Captures by running the forward once; replays by running it again
-    and writing the result into the captured outputs."""
+def _record_shapes(monkeypatch) -> list:
+    """The shapes of the inputs the forward's cache captures, in order."""
+    captured, capture = [], graphed.CACHE.capture
 
-    def __init__(self, eager, static_in):
-        self.eager, self.static_in = eager, static_in
-        self.static_out = eager(static_in)
+    def recording(state, eager, images):
+        captured.append(tuple(images.shape))
+        return capture(state, eager, images)
 
-    def replay(self):
-        for key, t in self.eager(self.static_in).items():
-            self.static_out[key].copy_(t)
-
-
-class _SlowFakeCUDAGraph(_FakeCUDAGraph):
-    """A fake whose replay lets other threads run between the copy into the
-    static input and the computation that reads it."""
-
-    def replay(self):
-        time.sleep(0.001)
-        super().replay()
+    monkeypatch.setattr(graphed.CACHE, "capture", recording)
+    return captured
 
 
 @pytest.fixture
 def stubbed(monkeypatch):
-    """CPU tensors pass the device check; the capture is the fake's. Yields
-    the list of captured inputs' shapes."""
-    captured = []
-
-    def capture(eager, images, state):
-        captured.append(tuple(images.shape))
-        g = _FakeCUDAGraph(eager, images.clone())
-        return graphed._Graph(g, g.static_in, g.static_out, [])
-
-    monkeypatch.setattr(graphed, "_device_reason", lambda images: None)
-    monkeypatch.setattr(graphed, "_capture", capture)
-    return captured
+    """The shared stub (``_cuda_graph_stub.stub``). Yields the list of
+    captured inputs' shapes."""
+    stub(monkeypatch)
+    return _record_shapes(monkeypatch)
 
 
 def _counts():
-    return graphed.REPLAYS, graphed.CAPTURES, graphed.CAPTURE_FAILURES, dict(graphed.EAGER)
+    return counts(graphed.COUNTS)
 
 
 def _delta(before):
-    after = _counts()
-    eager = {k: v - before[3].get(k, 0) for k, v in after[3].items() if v != before[3].get(k, 0)}
-    return after[0] - before[0], after[1] - before[1], after[2] - before[2], eager
+    return delta(graphed.COUNTS, before)
 
 
 def _x(seed=0, shape=(2, 3)):
@@ -163,7 +145,7 @@ def test_a_forward_hook_keeps_the_call_eager_and_fires(stubbed, kind):
         model(_x())
     assert hooked == (0, 0, 0, {"hooks": 3})
     assert len(fired) == (9 if kind == "global_hook" else 3)  # the global hook fires per module
-    assert graphed.REPLAYS == before[0] + 1  # removed: the graph replays again
+    assert graphed.COUNTS.replays == before[0] + 1  # removed: the graph replays again
 
 
 def test_eager_on_first_sight_capture_on_second_then_replay(stubbed):
@@ -173,15 +155,15 @@ def test_eager_on_first_sight_capture_on_second_then_replay(stubbed):
         want = model._eager(x)
         before = _counts()
         first = model(x)
-        assert _delta(before) == (0, 0, 0, {"first_sight": 1}) and stubbed == []
+        assert _delta(before) == (0, 0, 0, {FIRST: 1}) and stubbed == []
         second = model(x)
-        assert _delta(before) == (1, 1, 0, {"first_sight": 1}) and stubbed == [(2, 3)]
+        assert _delta(before) == (1, 1, 0, {FIRST: 1}) and stubbed == [(2, 3)]
         third = model(x)
         kept = {k: v.clone() for k, v in third.items()}
         model(_x(seed=1))  # a later call on other inputs
-        assert _delta(before) == (3, 1, 0, {"first_sight": 1})
-        model(_x(shape=(5, 3)))  # another signature: first sight again
-        assert _delta(before) == (3, 1, 0, {"first_sight": 2})
+        assert _delta(before) == (3, 1, 0, {FIRST: 1})
+        model(_x(shape=(5, 3)))  # another signature: its first call again
+        assert _delta(before) == (3, 1, 0, {FIRST: 2})
     for out in (first, second, third):
         assert set(out) == {"y", "s", "s_alias"}
         for k in out:
@@ -208,16 +190,16 @@ def test_signature_is_shape_strides_and_dtype(stubbed):
 
 def test_at_most_max_graphs_least_recently_used_out(stubbed):
     model = Tiny().eval()
-    n = graphed.MAX_GRAPHS + 1
+    n = graphed.CACHE.max_graphs + 1
     with torch.no_grad():
         for b in range(1, n + 1):
             model(_x(shape=(b, 3)))
             model(_x(shape=(b, 3)))
-        state = graphed._states[model]
+        state = graphed.CACHE.states[model]
         assert [sig[0][0] for sig in state.graphs] == list(range(2, n + 1))
         model(_x(shape=(1, 3)))  # evicted, but seen: captured again
     assert stubbed == [(b, 3) for b in range(1, n + 1)] + [(1, 3)]
-    assert len(state.graphs) == graphed.MAX_GRAPHS
+    assert len(state.graphs) == graphed.CACHE.max_graphs == 4
 
 
 @pytest.mark.parametrize("how", ["new_parameter", "data", "new_submodule"])
@@ -257,20 +239,16 @@ def test_an_in_place_weight_load_is_replayed_without_a_recapture(stubbed):
 
 def test_a_failed_capture_stays_eager_and_warns_once(monkeypatch):
     model = Tiny().eval()
-    monkeypatch.setattr(graphed, "_device_reason", lambda images: None)
-    monkeypatch.setattr(graphed, "_warned", False)
-
-    def fail(eager, images, state):
-        raise RuntimeError("operation not permitted when stream is capturing")
-
-    monkeypatch.setattr(graphed, "_capture", fail)
+    stub(monkeypatch)
+    fail_captures(monkeypatch)
+    monkeypatch.setattr(graphed.CACHE, "warned", False)
     before = _counts()
     with torch.no_grad(), pytest.warns(RuntimeWarning, match="capture of the forward failed") as rec:
         outs = [model(_x()) for _ in range(4)]
         model(_x(shape=(3, 3)))
         model(_x(shape=(3, 3)))  # a second failure, of another signature: no second warning
     assert len(rec) == 1
-    assert _delta(before) == (0, 0, 2, {"first_sight": 2, "capture_failed": 4})
+    assert _delta(before) == (0, 0, 2, {FIRST: 2, "capture_failed": 4})
     for out in outs:
         assert torch.equal(out["y"], model._eager(_x())["y"])
 
@@ -299,7 +277,7 @@ def test_persnet_forward_replays_and_a_copy_keeps_its_own_graphs(stubbed, persne
         replica = copy.deepcopy(model)
         replica(x)
     assert _delta(before)[:2] == (2, 1)
-    assert graphed._states[replica].graphs == {}  # seen once, not captured
+    assert graphed.CACHE.states[replica].graphs == {}  # seen once, not captured
     for out in outs:
         assert set(out) == set(want)
         for k in want:
@@ -322,28 +300,24 @@ def test_flipping_a_route_flag_is_a_new_signature_and_flipping_back_replays(
         for head in heads:
             setattr(head, flag, False)
         flipped = [model(x) for _ in range(2)]  # eager, then captured and replayed
-        assert _delta(before) == (1, 1, 0, {"first_sight": 1})
+        assert _delta(before) == (1, 1, 0, {FIRST: 1})
         want_flipped = model._eager_forward(x)
         for head in heads:
             setattr(head, flag, True)
         back = model(x)
         want = model._eager_forward(x)
-    assert _delta(before) == (2, 1, 0, {"first_sight": 1})  # no capture on the way back
+    assert _delta(before) == (2, 1, 0, {FIRST: 1})  # no capture on the way back
     assert stubbed == [(1, 32, 32, 3)] * 2
     for got, ref in [(out, want_flipped) for out in flipped] + [(back, want)]:
         for k in ref:
             assert torch.equal(got[k], ref[k])
 
 
-def test_two_threads_calling_one_model_each_get_their_own_result(stubbed, monkeypatch):
+def test_two_threads_calling_one_model_each_get_their_own_result(monkeypatch):
     """A replay copies into the graph's one static input: the model's lock
-    keeps another thread's copy from landing between it and the replay."""
-
-    def capture(eager, images, state):
-        g = _SlowFakeCUDAGraph(eager, images.clone())
-        return graphed._Graph(g, g.static_in, g.static_out, [])
-
-    monkeypatch.setattr(graphed, "_capture", capture)
+    keeps another thread's copy from landing between it and the replay (the
+    fake's replay lets other threads run between the two)."""
+    stub(monkeypatch, delay=0.001)
     model = Tiny().eval()
     xs = [_x(seed=10), _x(seed=11)]
     with torch.no_grad():
@@ -357,12 +331,12 @@ def test_two_threads_calling_one_model_each_get_their_own_result(stubbed, monkey
             got[i] = [model(xs[i])["y"] for _ in range(20)]
 
     threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
-    replays = graphed.REPLAYS
+    replays = graphed.COUNTS.replays
     for t in threads:
         t.start()
     for t in threads:
         t.join()
-    assert graphed.REPLAYS - replays >= 30
+    assert graphed.COUNTS.replays - replays >= 30
     for i in range(2):
         assert len(got[i]) == 20
         for y in got[i]:

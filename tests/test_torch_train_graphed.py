@@ -1,4 +1,5 @@
-"""The train step's CUDA-graph replay (``train.graphed_step``).
+"""The train step's CUDA-graph replay (``train.graphed_step``, a client of
+``utils.cuda_graphs``).
 
 On the CPU: the step stays eager with its reason counted; the optimizer is
 built with a float learning rate and the step's numbers are those of a
@@ -7,8 +8,9 @@ model keep a step eager; a model no longer used is collected; and the
 cache's rules (a signature's first step eager, then a capture and replays;
 the update eager after each replay, with the optimizer's hooks; a restored
 checkpoint; two graphs a model; a new storage or a failed capture), with
-the device check and the capture stubbed: a "graph" that reruns the step
-on its static batch, which must give the eager steps' numbers bit for bit.
+the device check and the capture primitive stubbed (``_cuda_graph_stub``):
+a "graph" that reruns the step on its static batch, which must give the
+eager steps' numbers bit for bit.
 
 On the card (``cuda``): replayed steps equal eager steps bit for bit in
 losses, parameters and AdamW's moments, with stochastic depth, remat, bf16
@@ -29,7 +31,7 @@ import torch
 from perspectivefields_tpu_torch import config as tc
 from perspectivefields_tpu_torch.checkpoint import restore_train_state, save_train_state
 from perspectivefields_tpu_torch.data import make_step_batch_fn, seeded_generator
-from perspectivefields_tpu_torch.models import PersNet, graphed
+from perspectivefields_tpu_torch.models import PersNet
 from perspectivefields_tpu_torch.models.common import init_random_
 from perspectivefields_tpu_torch.train import (
     clip_by_global_norm_,
@@ -40,6 +42,9 @@ from perspectivefields_tpu_torch.train import (
     total_loss,
     warmup_cosine_decay_schedule,
 )
+from perspectivefields_tpu_torch.utils import cuda_graphs
+from perspectivefields_tpu_torch.utils.cuda_graphs import FIRST
+from _cuda_graph_stub import counts, delta, fail_captures, stub
 
 CFG = tc.ModelConfig(
     version="custom",
@@ -97,14 +102,11 @@ def _run(model, batches, n, step=None, state=None, lr=SCHEDULE):
 
 
 def _counts():
-    return (graphed_step.REPLAYS, graphed_step.CAPTURES, graphed_step.CAPTURE_FAILURES,
-            dict(graphed_step.EAGER))
+    return counts(graphed_step.COUNTS)
 
 
 def _delta(before):
-    r, c, f, e = _counts()
-    eager = {k: v - before[3].get(k, 0) for k, v in e.items() if v != before[3].get(k, 0)}
-    return r - before[0], c - before[1], f - before[2], eager
+    return delta(graphed_step.COUNTS, before)
 
 
 def _assert_steps_equal(got, want):
@@ -183,7 +185,7 @@ def test_successive_steps_return_distinct_metrics():
 
 def _stub_device(monkeypatch):
     """Let CPU steps past the device check, as a current-device CUDA batch."""
-    monkeypatch.setattr(graphed, "_device_reason", lambda images: None)
+    monkeypatch.setattr(cuda_graphs, "device_reason", lambda t: None)
 
 
 def test_a_hook_on_a_submodule_keeps_the_step_eager(monkeypatch):
@@ -205,7 +207,7 @@ def test_a_hook_on_a_submodule_keeps_the_step_eager(monkeypatch):
 def test_a_model_no_longer_used_is_collected(stubbed):
     model = _model()
     state, _ = _run(model, _batches(), 1)
-    assert model in graphed_step._states
+    assert model in graphed_step.CACHE.states
     ref = weakref.ref(model)
     del model, state
     gc.collect()
@@ -224,43 +226,18 @@ def _resume(state, path, device="cpu"):
 # ---------------------------------------------------------------------------
 
 
-class _FakeCUDAGraph:
-    """Replays by running the step again on the graph's static batch with
-    its generator, into the captured metrics (made on the first replay)."""
-
-    def __init__(self, body, state, static_in, static_out, generator):
-        self.args = body, state, static_in, static_out, generator
-
-    def replay(self):
-        body, state, static_in, static_out, generator = self.args
-        for key, t in body(state, static_in, generator).items():
-            if key in static_out:
-                static_out[key].copy_(t)
-            else:
-                static_out[key] = t.clone()
-
-
-def _fake_capture(body, state, batch, st, device):
-    static_in = {key: t.clone() for key, t in batch.items()}
-    static_out, generator = {}, torch.Generator()
-    graph = _FakeCUDAGraph(body, state, static_in, static_out, generator)
-    return graphed_step._Graph(graph, static_in, static_out, [], generator)
-
-
 @pytest.fixture
 def stubbed(monkeypatch):
-    """The device check passes, the warm-up runs on the CPU and the capture
-    is ``_fake_capture``."""
-    _stub_device(monkeypatch)
-    monkeypatch.setattr(graphed_step, "_warm_up", lambda body, state, batch, seed, device: body(
-        state, batch, graphed_step._generator(device, seed)))
-    monkeypatch.setattr(graphed_step, "_capture", _fake_capture)
+    """The shared stub (``_cuda_graph_stub.stub``): the device check passes,
+    the warm-up runs on the CPU and a capture is a fake graph that reruns
+    the step, gradients included."""
+    stub(monkeypatch)
 
 
 def test_a_signature_runs_eager_then_captures_and_replays_the_eager_numbers(stubbed):
     before = _counts()
     got = _run(_model(), _batches(), 5)
-    assert _delta(before) == (4, 1, 0, {"first_of_signature": 1})
+    assert _delta(before) == (4, 1, 0, {FIRST: 1})
     want = _plain_steps(_model(), _batches(), 5)[0]
     for m, w in zip(got[1], want):
         assert torch.equal(m["loss"], w)
@@ -276,7 +253,7 @@ def test_a_replayed_step_runs_the_update_eager_with_the_optimizers_hooks(stubbed
         lambda opt, args, kwargs: seen.append(all(p.grad is not None for p in model.parameters())))
     before = _counts()
     state, _ = _run(model, _batches(), 4, state=state)
-    assert _delta(before) == (3, 1, 0, {"first_of_signature": 1})
+    assert _delta(before) == (3, 1, 0, {FIRST: 1})
     assert seen == [True] * 4
     assert state.optimizer.state[next(model.parameters())]["step"] == 4
 
@@ -289,7 +266,7 @@ def test_a_restored_checkpoint_steps_as_the_run_without_the_save(stubbed, tmp_pa
     restored = _resume(state, tmp_path)
     before = _counts()
     restored, rest = _run(restored.model, _batches()[2:] + _batches()[:2], 3, state=restored)
-    assert _delta(before) == (2, 1, 0, {"first_of_signature": 1})
+    assert _delta(before) == (2, 1, 0, {FIRST: 1})
     _assert_steps_equal((restored, first + rest), want)
 
 
@@ -311,12 +288,12 @@ def test_two_batch_shapes_keep_two_graphs_and_a_third_evicts_the_oldest(stubbed)
     for batches in shapes[:2]:
         for i in range(2):
             state, _ = step(state, batches[i])
-    assert _delta(before) == (2, 2, 0, {"first_of_signature": 2})
-    st = graphed_step._states[model]
+    assert _delta(before) == (2, 2, 0, {FIRST: 2})
+    st = graphed_step.CACHE.states[model]
     assert len(st.graphs) == 2
     for i in range(2):
         state, _ = step(state, shapes[2][i])
-    assert len(st.graphs) == graphed_step.MAX_GRAPHS == 2
+    assert len(st.graphs) == graphed_step.CACHE.max_graphs == 2
     before = _counts()
     state, _ = step(state, shapes[1][0])  # still kept
     state, _ = step(state, shapes[0][0])  # evicted: captured again (seen before)
@@ -342,16 +319,13 @@ def test_a_new_storage_drops_the_graphs_and_captures_again(stubbed):
 
 
 def test_a_capture_that_raises_keeps_its_signature_eager_with_one_warning(stubbed, monkeypatch):
-    def failing(*args):
-        raise RuntimeError("operation not permitted when stream is capturing")
-
-    monkeypatch.setattr(graphed_step, "_capture", failing)
-    monkeypatch.setattr(graphed_step, "_warned", False)
+    fail_captures(monkeypatch)
+    monkeypatch.setattr(graphed_step.CACHE, "warned", False)
     before = _counts()
     with pytest.warns(RuntimeWarning, match="capture of the train step failed") as caught:
         got = _run(_model(), _batches(), 4)
     assert len([w for w in caught if "train step" in str(w.message)]) == 1
-    assert _delta(before) == (0, 0, 1, {"first_of_signature": 1, "capture_failed": 3})
+    assert _delta(before) == (0, 0, 1, {FIRST: 1, "capture_failed": 3})
     want = _plain_steps(_model(), _batches(), 4)[0]
     for m, w in zip(got[1], want):
         assert torch.equal(m["loss"], w)
@@ -366,7 +340,7 @@ def test_the_train_loop_shares_the_steps_graphs(stubbed):
     before = _counts()
     state, m = loops[0](state)
     state, _ = loops[1](state)
-    assert _delta(before) == (2, 1, 0, {"first_of_signature": 1})
+    assert _delta(before) == (2, 1, 0, {FIRST: 1})
     assert m["loss"].shape == (2,)
 
 
@@ -416,7 +390,7 @@ def test_replayed_steps_equal_eager_steps_bit_for_bit(cuda_device):
     batches = _batches(cuda_device, b=4)
     before = _counts()
     got = _run(_model(cuda_device), batches, 5)
-    assert _delta(before) == (4, 1, 0, {"first_of_signature": 1})
+    assert _delta(before) == (4, 1, 0, {FIRST: 1})
     opt = got[0].optimizer
     assert all(isinstance(g["lr"], float) and not g["capturable"] for g in opt.param_groups)
     want = _run(_eager_twin(cuda_device), batches, 5)
@@ -452,7 +426,7 @@ def test_a_restored_checkpoint_replays(cuda_device, tmp_path):
     restored = _resume(state, tmp_path, cuda_device)
     before = _counts()
     _run(restored.model, batches, 3, state=restored)
-    assert _delta(before) == (2, 1, 0, {"first_of_signature": 1})
+    assert _delta(before) == (2, 1, 0, {FIRST: 1})
 
 
 @pytest.mark.cuda
@@ -464,8 +438,8 @@ def test_two_batch_shapes_give_two_graphs(cuda_device):
     for b in (4, 2):
         for batch in _batches(cuda_device, b=b)[:3]:
             state, _ = step(state, batch)
-    assert _delta(before) == (4, 2, 0, {"first_of_signature": 2})
-    assert len(graphed_step._states[model].graphs) == 2
+    assert _delta(before) == (4, 2, 0, {FIRST: 2})
+    assert len(graphed_step.CACHE.states[model].graphs) == 2
 
 
 @pytest.mark.cuda
@@ -475,14 +449,14 @@ def test_a_loss_that_reads_the_host_falls_back_to_eager_for_good(cuda_device, mo
         parts["host"] = torch.full_like(loss, loss.item())  # a device-to-host read
         return loss, parts
 
-    monkeypatch.setattr(graphed_step, "_warned", False)
+    monkeypatch.setattr(graphed_step.CACHE, "warned", False)
     batches = _batches(cuda_device, b=4)
     before = _counts()
     step = make_train_step(CFG, loss_fn=reading, compute_dtype=torch.bfloat16)
     with pytest.warns(RuntimeWarning, match="capture of the train step failed") as caught:
         got = _run(_model(cuda_device), batches, 4, step=step)
     assert len([w for w in caught if "train step" in str(w.message)]) == 1
-    assert _delta(before) == (0, 0, 1, {"first_of_signature": 1, "capture_failed": 3})
+    assert _delta(before) == (0, 0, 1, {FIRST: 1, "capture_failed": 3})
     assert torch.cuda.current_stream() == torch.cuda.default_stream()
     want = _run(_eager_twin(cuda_device), batches, 4,
                 step=make_train_step(CFG, loss_fn=reading, compute_dtype=torch.bfloat16))
